@@ -1,0 +1,13 @@
+"""flacx_torch: the batched FLAC encoder on PyTorch and CUDA.
+
+A port of the JAX package ``flacx`` beside it.  Plain tensor code is
+PyTorch; every TPU kernel on the encode path has a hand-written CUDA
+counterpart under ``flacx_torch/kernels/csrc``.  Entry points run on the
+card (``device="cuda"``) unless the caller passes ``device="cpu"``, which
+takes each kernel's plain PyTorch version.
+
+Importing this package imports neither ``jax`` nor ``flacx``; the encoder
+lives in :mod:`flacx_torch.encoder`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,458 @@
+"""Batched FLAC encoder on PyTorch and CUDA.
+
+A batch of ``[B, channels, block_size]`` PCM blocks flows through one
+pipeline on the device:
+
+  stereo candidates → analysis (autocorrelation + fixed-order sums,
+  ``analysis`` kernel) → Levinson-Durbin and quantization of every order
+  → candidate ranking (LPC statistics, ``lpc_residual`` kernel in stats
+  mode) → stereo mode choice → chosen zigzag residual (``lpc_residual``
+  in zz mode) → exact Rice search (``rice_stats`` kernel + plan) →
+  emit, pack and CRC-16 (``frame_pack`` kernel)
+
+yielding complete, CRC'd FLAC frames as byte rows.  On the CPU every
+kernel is replaced by its plain PyTorch version.
+
+This slice covers the estimate-mode order search with one window, f32
+analysis and the single-int32 MAC.  Other configurations raise
+``NotImplementedError`` naming the slice that will bring them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from flacx_torch.device import resolve_device
+from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
+                                Channels)
+from flacx_torch.kernels.analysis import analysis
+from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
+                                              lpc_residual_zz)
+from flacx_torch.kernels.rice_stats import rice_stats
+from flacx_torch.ops import emit, rice
+from flacx_torch.ops.framepack import pack_frames
+from flacx_torch.ops.headers import frame_header_symbols
+from flacx_torch.ops.lpc import (apodization_window_np, levinson_all_orders,
+                                 mac_int32_ok, quantize_all_orders,
+                                 window_from_numpy)
+
+_INF = 1 << 50
+
+#: stereo modes: (channel code, virtual-channel pair)
+_STEREO_MODES = (
+    (Channels.L_R, (0, 1)),
+    (Channels.L_S, (0, 3)),
+    (Channels.S_R, (3, 1)),
+    (Channels.M_S, (2, 3)),
+)
+
+
+def device_min_block_size(max_lpc_order: int) -> int:
+    """Smallest block size the batched pipeline accepts."""
+    return 2 * max(max_lpc_order, 4) + 2
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder configuration: the same fields, defaults and validation as
+    the JAX package's ``EncoderConfig``."""
+    sample_rate: int = 44100
+    bps: int = 16
+    channels: int = 2
+    block_size: int = 4608
+    max_lpc_order: int = 12
+    qlp_precision: int = 5
+    partition_orders: tuple[int, ...] = (0, 1, 2, 3, 4, 5)
+    stereo: str = "auto"          # "auto" | "independent"
+    #: "estimate" ranks LPC orders by the Levinson prediction error and
+    #: computes exact residuals only for the winner; "exact" evaluates
+    #: every order's true integer residual.
+    order_search: str = "estimate"
+    #: LPC analysis float width: "f32", "f64" or "auto" (f32 for the
+    #: estimate-mode order search, f64 for exact).
+    analysis_dtype: str = "auto"
+    #: Emit ESCAPED Rice partitions where strictly smaller than every
+    #: eligible Rice parameter.
+    escapes: bool = True
+    #: Detect and strip shared trailing zero bits per subframe.
+    wasted_bits: bool = False
+    #: LPC apodization window candidates (libFLAC-style ``-A`` names).
+    windows: tuple[str, ...] = ("tukey(0.5)",)
+    #: Reproduce the reference encoder's parameter choices exactly.
+    conformance: bool = False
+
+    def __post_init__(self):
+        if self.conformance:
+            object.__setattr__(self, "stereo", "independent")
+            object.__setattr__(self, "escapes", False)
+            object.__setattr__(self, "wasted_bits", False)
+            object.__setattr__(self, "windows", ("tukey(0.5)",))
+        if isinstance(self.windows, str):          # accept a lone name
+            object.__setattr__(self, "windows", (self.windows,))
+        if not self.windows:
+            raise ValueError("windows must name at least one window")
+        for w in self.windows:
+            apodization_window_np(w, 64)           # validate eagerly
+        if self.order_search not in ("estimate", "exact"):
+            raise ValueError("order_search must be 'estimate' or 'exact'")
+        if self.analysis_dtype not in ("auto", "f32", "f64"):
+            raise ValueError("analysis_dtype must be 'auto', 'f32' or 'f64'")
+        if not 1 <= self.channels <= 8:
+            raise ValueError("channels must be in 1..8")
+        if not 0 <= self.max_lpc_order <= 32:
+            raise ValueError("max LPC order is 32")
+        if self.max_lpc_order and self.qlp_precision < 5:
+            raise ValueError("qlp precision must be >= 5")
+        if self.block_size < device_min_block_size(self.max_lpc_order):
+            raise ValueError("block size too small for requested LPC order")
+        if self.bps > 31 and self.stereo == "auto":
+            # side channel would need 33-bit samples; stay independent
+            object.__setattr__(self, "stereo", "independent")
+
+    @property
+    def use_stereo_modes(self) -> bool:
+        return self.channels == 2 and self.stereo == "auto"
+
+    @property
+    def max_taps(self) -> int:
+        return max(self.max_lpc_order, 4)
+
+    @property
+    def kmax(self) -> int:
+        return min(30, self.bps + 7)
+
+    @property
+    def porders(self) -> tuple[int, ...]:
+        """Legal partition orders: requested ∪ {0}, filtered by the 4-bit
+        field and divisibility."""
+        legal = [o for o in self.partition_orders
+                 if o <= 15 and self.block_size % (1 << o) == 0]
+        return tuple(sorted(set(legal) | {0}))
+
+    @property
+    def preferred_porders(self) -> tuple[int, ...]:
+        return tuple(o for o in self.porders if o in self.partition_orders)
+
+    @property
+    def eff_bps(self) -> int:
+        """Max per-virtual-channel sample width (side channel is bps+1)."""
+        return self.bps + (1 if self.use_stereo_modes else 0)
+
+    @property
+    def sum_taps_max(self) -> int:
+        """Static bound on Σ|taps| of a quantized LPC predictor."""
+        return max(1, self.max_lpc_order << max(self.qlp_precision - 1, 0))
+
+    @property
+    def max_frame_bytes(self) -> int:
+        side = 1 if self.use_stereo_modes else 0
+        bits = (16 * 8 + self.channels * (8 + self.block_size *
+                                          (self.bps + side)) + 64)
+        return ((bits // 8 + 2) + 255) // 256 * 256
+
+
+def config_from_flacx(d: dict) -> EncoderConfig:
+    """An :class:`EncoderConfig` from ``dataclasses.asdict`` of the JAX
+    package's config; raises on a field this config does not know."""
+    known = {f.name for f in dataclasses.fields(EncoderConfig)}
+    unknown = sorted(set(d) - known)
+    if unknown:
+        raise ValueError(f"unknown encoder config fields: {unknown}")
+    return EncoderConfig(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in d.items()})
+
+
+def check_supported(cfg: EncoderConfig) -> None:
+    """Raise ``NotImplementedError`` for configurations this slice of the
+    port does not encode."""
+    later = []
+    if cfg.conformance:
+        later.append("conformance=True (conformance slice)")
+    if cfg.order_search != "estimate":
+        later.append("order_search='exact' (exact-search slice)")
+    if cfg.analysis_dtype == "f64":
+        later.append("analysis_dtype='f64' (exact-search slice)")
+    if len(cfg.windows) != 1:
+        later.append("more than one window (multi-window slice)")
+    if cfg.wasted_bits:
+        later.append("wasted_bits=True (wasted-bits slice)")
+    if cfg.bps > 17:
+        later.append(f"bps {cfg.bps} > 17 (hi-res slice)")
+    elif not mac_int32_ok(cfg.eff_bps, max(cfg.sum_taps_max, 15)):
+        later.append("a width past the int32 MAC bound (hi-res slice)")
+    psize_min = cfg.block_size >> max(cfg.porders)
+    if not emit.blocked_layout_ok(cfg.block_size, psize_min):
+        later.append(f"finest partition size {psize_min} "
+                     "(segmented layout, hi-res slice)")
+    if later:
+        raise NotImplementedError("flacx_torch does not encode yet: "
+                                  + "; ".join(later))
+
+
+def _gather_pair(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``arr [B, V, ...]`` at each frame's virtual-channel pair ``sel``."""
+    idx = sel.reshape(*sel.shape, *([1] * (arr.dim() - 2)))
+    return arr.gather(1, idx.expand(-1, -1, *arr.shape[2:]))
+
+
+def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
+                  window: torch.Tensor) -> dict:
+    """pcm int16/int32 ``[B, channels, N]`` → frames ``[B, max_bytes]``.
+
+    ``window`` is the f32 ``[N]`` apodization window on ``pcm``'s device.
+    Returns a dict of device tensors: ``bytes`` (u8), ``length``, ``kind``,
+    ``channel_code`` and ``subframe_bits``.
+    """
+    check_supported(cfg)
+    n = cfg.block_size
+    b = pcm.shape[0]
+    p = cfg.max_lpc_order
+    t = cfg.max_taps
+    prec = cfg.qlp_precision
+    kmax = cfg.kmax
+    dev = pcm.device
+
+    def ar(*args):
+        return torch.arange(*args, dtype=torch.int64, device=dev)
+
+    # ----- virtual channels -----------------------------------------------
+    if cfg.use_stereo_modes:
+        left = pcm[:, 0].to(torch.int32)
+        right = pcm[:, 1].to(torch.int32)
+        x_v = torch.stack([left, right, (left + right) >> 1, left - right],
+                          dim=1)                                 # [B, 4, N]
+        bps_list = [cfg.bps] * 3 + [cfg.bps + 1]
+    else:
+        x_v = pcm.to(torch.int32).contiguous()
+        bps_list = [cfg.bps] * cfg.channels
+    nv = x_v.shape[1]
+    bps_v = torch.tensor(bps_list, dtype=torch.int64,
+                         device=dev).expand(b, nv)               # [B, V]
+
+    # ----- candidate analysis: fixed orders 0..4, LPC orders 1..P --------
+    autoc, fzz_sum = analysis(x_v, window, p)
+    fixed_orders = ar(5)
+    fest = (rice.estimate_bits(fzz_sum, n - fixed_orders, kmax)
+            + 8 + fixed_orders * bps_v[..., None])
+    fixed_bits = fest.amin(-1)
+    fixed_order = fest.argmin(-1).to(torch.int32)
+    sum_taps_max = cfg.sum_taps_max
+    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)   # [5, 4]
+
+    if p:
+        taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
+        # Levinson returns the analysis polynomial a[1:]; the prediction
+        # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation
+        qcoefs, qshifts, valid_q = quantize_all_orders(-taps_f, prec)
+        lpc_valid = valid_ld & valid_q                          # [B, V, P]
+        lorders = ar(1, p + 1)
+        lcounts = n - lorders
+        # the error power is in the windowed domain: undo the window's
+        # average power so fixed (unwindowed) and LPC estimates compare;
+        # E|r| ≈ sqrt(2/π)·σ
+        wnp = apodization_window_np(cfg.windows[0], n)
+        win_pow = float(np.mean(wnp ** 2))
+        sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0) / (n * win_pow))
+        mean_abs = math.sqrt(2.0 / math.pi) * sigma
+        lzz_sum = (2.0 * mean_abs * lcounts.double()).long()
+        lest = (rice.estimate_bits(lzz_sum, lcounts, kmax) + 8
+                + lorders * bps_v[..., None] + 9 + lorders * prec)
+        lest = torch.where(lpc_valid, lest, _INF)
+        lo0 = lest.argmin(-1)                                   # [B, V]
+        lpc_order = (lo0 + 1).to(torch.int32)
+        taps_lpc_v = qcoefs.gather(
+            2, lo0[..., None, None].expand(b, nv, 1, p))[:, :, 0]
+        shift_lpc_v = qshifts.gather(2, lo0[..., None])[..., 0]
+        # cross-family comparison on EXACT magnitude sums (the Levinson
+        # error is optimistic about post-quantization residuals)
+        lzz_exact, lpc_maxabs = lpc_residual_stats(
+            x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
+            lpc_order, cfg.eff_bps, sum_taps_max)
+        lo64 = lpc_order.long()
+        lpc_bits = (rice.estimate_bits(lzz_exact, n - lo64, kmax)
+                    + 8 + lo64 * bps_v + 9 + lo64 * prec)
+        # residuals that cannot survive the int32 working dtype make the
+        # LPC candidate ineligible (verbatim/fixed win instead)
+        lpc_ok = (lpc_valid.gather(-1, lo0[..., None])[..., 0]
+                  & (lpc_maxabs < (1 << 30)))
+        lpc_bits = torch.where(lpc_ok, lpc_bits, _INF)
+        pred_is_lpc = lpc_bits < fixed_bits
+    else:
+        lpc_bits = torch.full_like(fixed_bits, _INF)
+        lpc_order = torch.ones_like(fixed_order)
+        taps_lpc_v = torch.zeros((b, nv, t), dtype=torch.int32, device=dev)
+        shift_lpc_v = torch.zeros((b, nv), dtype=torch.int32, device=dev)
+        pred_is_lpc = torch.zeros_like(fixed_bits, dtype=torch.bool)
+    pred_bits = torch.minimum(fixed_bits, lpc_bits)
+    pred_order = torch.where(pred_is_lpc, lpc_order, fixed_order)
+
+    const_ok = (x_v == x_v[..., :1]).all(-1)                    # [B, V]
+    const_bits = torch.where(const_ok, 8 + bps_v, _INF)
+    verb_bits = 8 + n * bps_v
+    cost_v = torch.minimum(torch.minimum(pred_bits, verb_bits), const_bits)
+
+    # ----- stereo mode / channel selection --------------------------------
+    if cfg.use_stereo_modes:
+        pairs = torch.tensor([m[1] for m in _STEREO_MODES], device=dev)
+        codes = torch.tensor([int(m[0]) for m in _STEREO_MODES],
+                             dtype=torch.int32, device=dev)
+        mode_cost = cost_v[:, pairs[:, 0]] + cost_v[:, pairs[:, 1]]  # [B,4]
+        mode = mode_cost.argmin(-1)                                  # [B]
+        ch_code = codes[mode]
+        sel = pairs[mode]                                            # [B,2]
+        c = 2
+
+        def gather_v(arr):
+            return _gather_pair(arr, sel)
+    else:
+        c = cfg.channels
+        ch_code = torch.full((b,), int(INDEPENDENT_CHANNELS[c]),
+                             dtype=torch.int32, device=dev)
+
+        def gather_v(arr):
+            return arr
+
+    x_sel = gather_v(x_v).contiguous()
+    is_lpc = gather_v(pred_is_lpc)
+    order = gather_v(pred_order)
+    const_sel = gather_v(const_ok)
+    f_order = gather_v(fixed_order)
+    bps_c = gather_v(bps_v)
+
+    # chosen taps, merged across the two families and padded to max_taps
+    taps_fix = torch.nn.functional.pad(taps_fix4[f_order.long()],
+                                       (0, t - 4))
+    taps_lpc = torch.nn.functional.pad(gather_v(taps_lpc_v),
+                                       (0, t - taps_lpc_v.shape[-1]))
+    taps = torch.where(is_lpc[..., None], taps_lpc, taps_fix) \
+        .to(torch.int32).contiguous()
+    shift = torch.where(is_lpc, gather_v(shift_lpc_v), 0) \
+        .to(torch.int32).contiguous()
+
+    # ----- chosen residual and its exact Rice plan ------------------------
+    zz = lpc_residual_zz(x_sel, taps, shift, order.contiguous(),
+                         cfg.eff_bps, max(sum_taps_max, 15))
+    stats = rice_stats(zz, order.contiguous(), cfg.porders, kmax)
+    plan = rice.exact_plan(zz, order, cfg.porders, cfg.preferred_porders,
+                           kmax, allow_escape=cfg.escapes,
+                           kernel_stats=stats)
+
+    # ----- final kind by exact size ---------------------------------------
+    order64 = order.long()
+    pred_total = (8 + order64 * bps_c
+                  + torch.where(is_lpc, 9 + order64 * prec, 0) + plan.bits)
+    verb_total = 8 + n * bps_c
+    kind = torch.where(
+        const_sel, emit.KIND_CONSTANT,
+        torch.where(verb_total < pred_total, emit.KIND_VERBATIM,
+                    torch.where(is_lpc, emit.KIND_LPC, emit.KIND_FIXED))
+    ).to(torch.int32)
+    sub_bits = torch.where(const_sel, 8 + bps_c,
+                           torch.minimum(verb_total, pred_total))
+
+    # ----- emission --------------------------------------------------------
+    hdr = frame_header_symbols(first_index + ar(b), ch_code, n)
+    frame_bytes, length = pack_frames(
+        hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift, prec,
+        zz, plan, n >> max(cfg.porders), cfg.max_frame_bytes)
+    return {"bytes": frame_bytes, "length": length, "kind": kind,
+            "channel_code": ch_code, "subframe_bits": sub_bits}
+
+
+class BatchEncoder:
+    """Batched frame encoder with host assembly.
+
+    ``device`` defaults to the card; pass ``device="cpu"`` for the plain
+    PyTorch path (no kernels).  There is no fallback between the two.
+    """
+
+    def __init__(self, config: EncoderConfig, batch_frames: int = 32,
+                 device: str | torch.device = "cuda"):
+        check_supported(config)
+        self.config = config
+        self.batch_frames = batch_frames
+        self.device = resolve_device(device)
+        wnp = apodization_window_np(config.windows[0], config.block_size)
+        self._window = window_from_numpy(wnp.astype(np.float32)) \
+            .to(self.device)
+
+    def encode_batch_device(self, pcm, first_index: int) -> dict:
+        """Run the pipeline on ``[B, channels, N]`` int16 or int32 PCM
+        (numpy or tensor); returns the device tensors of
+        :func:`_encode_batch`.  int16 input crosses to the device as
+        int16 and is widened there."""
+        arr = torch.as_tensor(pcm)
+        if arr.dtype not in (torch.int16, torch.int32):
+            raise TypeError(f"PCM must be int16 or int32, got {arr.dtype}")
+        if tuple(arr.shape[1:]) != (self.config.channels,
+                                    self.config.block_size):
+            raise ValueError(f"PCM shape {tuple(arr.shape)} does not match "
+                             f"[B, {self.config.channels}, "
+                             f"{self.config.block_size}]")
+        return _encode_batch(self.config, arr.to(self.device), first_index,
+                             self._window)
+
+    def _drain(self, result: dict, valid: int,
+               stats: dict | None) -> list[bytes]:
+        """Fetch one finished batch and cut its rows into frame bytes."""
+        lens = result["length"][:valid].cpu().numpy()
+        width = int(lens.max()) if valid else 0
+        data = result["bytes"][:valid, :width].cpu().numpy()
+        if stats is not None:
+            kinds = result["kind"][:valid].cpu().numpy().ravel()
+            kh = stats.setdefault("subframe_kinds", {})
+            for name, code in (("constant", 0), ("verbatim", 1),
+                               ("fixed", 2), ("lpc", 3)):
+                kh[name] = kh.get(name, 0) + int((kinds == code).sum())
+            codes = result["channel_code"][:valid].cpu().numpy()
+            mh = stats.setdefault("stereo_modes", {})
+            for name, code in (("L/R", 1), ("L/S", 8), ("S/R", 9),
+                               ("M/S", 10)):
+                mh[name] = mh.get(name, 0) + int((codes == code).sum())
+            stats["frame_bytes"] = stats.get("frame_bytes", 0) \
+                + int(lens.sum())
+        return [data[i, :lens[i]].tobytes() for i in range(valid)]
+
+    def encode_frame_stream(self, batches, first_index: int = 0,
+                            stats: dict | None = None):
+        """Encode a stream of block batches, yielding frame byte strings.
+
+        ``batches`` is an iterable of ``[F <= batch_frames, channels, N]``
+        full-block groups (short groups are zero-padded to the batch
+        shape; pad frames are encoded and discarded).  At most two batches
+        are in flight: batch ``i+1`` is dispatched to the device before
+        batch ``i`` is fetched and cut into frames.
+
+        ``stats``, if given, accumulates subframe-kind and stereo-mode
+        histograms plus total frame bytes.
+        """
+        bsz = self.batch_frames
+        index = first_index
+        pending = []
+        for chunk in batches:
+            valid = chunk.shape[0]
+            if valid > bsz:
+                raise ValueError(f"batch group of {valid} frames exceeds "
+                                 f"batch_frames={bsz}")
+            if valid < bsz:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((bsz - valid, *chunk.shape[1:]),
+                                     chunk.dtype)], axis=0)
+            pending.append((self.encode_batch_device(chunk, index), valid))
+            index += valid
+            if len(pending) == 2:
+                yield from self._drain(*pending.pop(0), stats)
+        for result, valid in pending:
+            yield from self._drain(result, valid, stats)
+
+    def encode_frames(self, pcm: np.ndarray, first_index: int,
+                      stats: dict | None = None) -> list[bytes]:
+        """Encode ``[F, channels, N]`` full blocks into frame byte strings."""
+        bsz = self.batch_frames
+        batches = (pcm[s: s + bsz] for s in range(0, pcm.shape[0], bsz))
+        return list(self.encode_frame_stream(batches, first_index, stats))

@@ -1,0 +1,118 @@
+"""The ``frame_pack`` kernel: finished frame bytes (sample symbols
+emitted, the frame's symbol stream packed MSB-first, CRC-16 appended)
+from the encoder's chosen subframes.
+
+Replaces the TPU chain ``flacx/kernels/emit_tile.py::emit_sample_tiles``
+→ ``bitpack_tile.py::merge_tiles_t`` → ``bitpack_tile.py::merge_strings_t``
+→ ``crc_tile.py::crc16_packed_t``; source, bound and design in
+``csrc/frame_pack.cu``.  Its plain version is the classic symbol chain:
+``emit`` symbols → merge-tree packer → CRC-16 fold.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flacx_torch.kernels.build import bind, check, launch
+from flacx_torch.ops.bitpack import pack_symbols_words, words_to_bytes
+from flacx_torch.ops.crcfold import crc16_over_word_rows
+from flacx_torch.ops.emit import (blocked_layout_ok, interleave_slots,
+                                  param_slot_positions, sample_symbols_from)
+
+
+def frame_pack_plain(hdr_v: torch.Tensor, hdr_l: torch.Tensor,
+                     sh_v: torch.Tensor, sh_l: torch.Tensor,
+                     pv: torch.Tensor, pl: torch.Tensor, zz: torch.Tensor,
+                     x: torch.Tensor, kesc: torch.Tensor, kind: torch.Tensor,
+                     order: torch.Tensor, bps: torch.Tensor, psize_min: int,
+                     max_frame_bytes: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`frame_pack`."""
+    b, c, n = x.shape
+    k_sample = (kesc & 31).repeat_interleave(psize_min, dim=-1)
+    esc_sample = ((kesc >> 7) & 1).bool().repeat_interleave(psize_min,
+                                                           dim=-1)
+    sv, sl = sample_symbols_from(kind, order, bps, x, zz, k_sample,
+                                 esc_sample)
+    values = torch.cat([sh_v, *interleave_slots(pv, sv, psize_min)],
+                       dim=-1).reshape(b, -1)
+    lengths = torch.cat([sh_l, *interleave_slots(pl, sl, psize_min)],
+                        dim=-1).reshape(b, -1)
+    body_bits = hdr_l.sum(-1) + lengths.sum(-1)
+    pad = (-body_bits) % 8
+    values = torch.cat([hdr_v, values, torch.zeros_like(values[:, :1])],
+                       dim=-1)
+    lengths = torch.cat([hdr_l, lengths, pad[:, None].to(torch.int32)],
+                        dim=-1)
+    words, total_bits = pack_symbols_words(values, lengths, max_frame_bytes)
+    nbytes = total_bits.long() // 8
+    crc = crc16_over_word_rows(words, nbytes)
+    frame_bytes = words_to_bytes(words)
+    pos = torch.arange(max_frame_bytes, device=x.device)
+    frame_bytes = torch.where(pos == nbytes[:, None],
+                              (crc[:, None] >> 8).to(torch.uint8),
+                              frame_bytes)
+    frame_bytes = torch.where(pos == (nbytes + 1)[:, None],
+                              (crc[:, None] & 0xFF).to(torch.uint8),
+                              frame_bytes)
+    return frame_bytes, (nbytes + 2).to(torch.int32)
+
+
+def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
+               sh_l: torch.Tensor, pv: torch.Tensor, pl: torch.Tensor,
+               zz: torch.Tensor, x: torch.Tensor, kesc: torch.Tensor,
+               kind: torch.Tensor, order: torch.Tensor, bps: torch.Tensor,
+               psize_min: int, max_frame_bytes: int,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frame bytes ``u8 [B, max_frame_bytes]`` and lengths ``int32 [B]``
+    (CRC-16 included).
+
+    Args:
+      hdr_v, hdr_l: frame-header symbols ``[B, H]`` (values int64 holding
+        unsigned 32-bit symbols, lengths int32 ≤ 32).
+      sh_v, sh_l: subframe-header symbols ``[B, C, SH]``.
+      pv, pl: partition-parameter symbols ``[B, C, P]`` at
+        ``emit.param_slot_positions(n, psize_min)``.
+      zz, x: int32 ``[B, C, N]`` zigzag residuals (0 at ``i < order``)
+        and samples.
+      kesc: int32 ``[B, C, N // psize_min]`` per-segment ``k | escape << 7``.
+      kind, order, bps: ``[B, C]`` chosen subframe kind, predictor order
+        and sample width.
+      psize_min: finest partition size; the blocked slot layout must hold.
+    """
+    if x.device.type == "cpu":
+        return frame_pack_plain(hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x,
+                                kesc, kind, order, bps, psize_min,
+                                max_frame_bytes)
+    b, c, n = x.shape
+    if not blocked_layout_ok(n, psize_min):
+        raise NotImplementedError(
+            f"frame_pack: block {n} with finest partition {psize_min} needs "
+            "the segmented slot layout of the hi-res slice")
+    p = len(param_slot_positions(n, psize_min))
+    dev = x.device
+    check(hdr_v, "hdr_v", torch.int64, (b, hdr_v.shape[-1]), dev)
+    check(hdr_l, "hdr_l", torch.int32, hdr_v.shape, dev)
+    check(sh_v, "sh_v", torch.int64, (b, c, sh_v.shape[-1]), dev)
+    check(sh_l, "sh_l", torch.int32, sh_v.shape, dev)
+    check(pv, "pv", torch.int64, (b, c, p), dev)
+    check(pl, "pl", torch.int32, (b, c, p), dev)
+    check(zz, "zz", torch.int32, (b, c, n), dev)
+    check(x, "x", torch.int32, (b, c, n), dev)
+    check(kesc, "kesc", torch.int32, (b, c, n // psize_min), dev)
+    if max_frame_bytes % 4:
+        raise ValueError("frame_pack: max_frame_bytes must be a multiple "
+                         "of 4")
+    meta = torch.stack([kind, order, bps], dim=-1).to(torch.int32) \
+        .contiguous()
+    out = torch.empty((b, max_frame_bytes), dtype=torch.uint8, device=dev)
+    length = torch.empty(b, dtype=torch.int32, device=dev)
+    launch(bind("frame_pack", "flacx_frame_pack", 12, 8),
+           [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, out, length],
+           [b, c, hdr_v.shape[-1], sh_v.shape[-1], p, n, psize_min,
+            max_frame_bytes], "frame_pack")
+    frame_pack.launches += 1
+    return out, length
+
+
+frame_pack.launches = 0

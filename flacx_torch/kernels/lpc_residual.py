@@ -1,0 +1,108 @@
+"""The ``lpc_residual`` kernel: the integer LPC residual of every row, in
+a stats mode (Σ zigzag and max |res|, the residual never written) and a
+zz mode (the zigzag residual written out).
+
+Replaces the TPU kernels ``flacx/kernels/lpcres_tile.py::
+lpc_residual_stats`` (stats mode) and ``::zigzag_residual_tiles`` (zz
+mode); source, bound and design in ``csrc/lpc_residual.cu``.  Only the
+single-int32 MAC is ported: both wrappers refuse widths past its bound.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flacx_torch.kernels.build import bind, check, launch
+from flacx_torch.ops.lpc import mac_int32_ok, predict_residual_fused
+from flacx_torch.ops.rice import zigzag
+
+MAX_TAPS = 32
+
+
+def _check_bound(eff_bps: int, sum_taps_max: int) -> None:
+    if not mac_int32_ok(eff_bps, sum_taps_max):
+        raise NotImplementedError(
+            f"lpc_residual: eff_bps {eff_bps} with tap magnitude sum "
+            f"{sum_taps_max} breaks the int32 MAC bound; the two-limb MAC "
+            "belongs to the hi-res slice")
+
+
+def lpc_residual_stats_plain(x: torch.Tensor, taps: torch.Tensor,
+                             shift: torch.Tensor, order: torch.Tensor,
+                             eff_bps: int, sum_taps_max: int,
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`lpc_residual_stats`."""
+    _check_bound(eff_bps, sum_taps_max)
+    _, lzz, maxabs = predict_residual_fused(x, taps, shift, order, eff_bps,
+                                            sum_taps_max)
+    return lzz, maxabs
+
+
+def lpc_residual_zz_plain(x: torch.Tensor, taps: torch.Tensor,
+                          shift: torch.Tensor, order: torch.Tensor,
+                          eff_bps: int, sum_taps_max: int) -> torch.Tensor:
+    """Plain version of :func:`lpc_residual_zz`."""
+    _check_bound(eff_bps, sum_taps_max)
+    res, _, _ = predict_residual_fused(x, taps, shift, order, eff_bps,
+                                       sum_taps_max)
+    return zigzag(res)
+
+
+def _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max):
+    _check_bound(eff_bps, sum_taps_max)
+    lead = x.shape[:-1]
+    check(x, "x", torch.int32)
+    check(taps, "taps", torch.int32, (*lead, taps.shape[-1]), x.device)
+    check(shift, "shift", torch.int32, lead, x.device)
+    check(order, "order", torch.int32, lead, x.device)
+    if taps.shape[-1] > MAX_TAPS or x.shape[-1] < 1:
+        raise ValueError(f"lpc_residual: {taps.shape[-1]} taps > {MAX_TAPS}")
+    return math.prod(lead), x.shape[-1], taps.shape[-1]
+
+
+def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
+                       shift: torch.Tensor, order: torch.Tensor,
+                       eff_bps: int, sum_taps_max: int,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ zigzag(res) int64, max |res| int32)`` per row, where
+    ``res[i] = x[i] - (Σ_j taps_j·x[i-1-j] >> shift)`` and ``res[i <
+    order] = 0``.
+
+    Args:
+      x: int32 ``[..., n]``; taps int32 ``[..., T]`` (T ≤ 32, zero past
+        the order); shift and order int32 ``[...]``.
+      eff_bps, sum_taps_max: the static width bound the int32 MAC needs.
+    """
+    if x.device.type == "cpu":
+        return lpc_residual_stats_plain(x, taps, shift, order, eff_bps,
+                                        sum_taps_max)
+    rows, n, t = _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max)
+    lzz = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
+    maxabs = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+    launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 3),
+           [x, taps, shift, order, lzz, maxabs], [rows, n, t],
+           "lpc_residual_stats")
+    lpc_residual_stats.launches += 1
+    return lzz, maxabs
+
+
+def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
+                    shift: torch.Tensor, order: torch.Tensor,
+                    eff_bps: int, sum_taps_max: int) -> torch.Tensor:
+    """``zigzag(res)`` int32 ``[..., n]``, zero at ``i < order`` (same
+    arguments as :func:`lpc_residual_stats`)."""
+    if x.device.type == "cpu":
+        return lpc_residual_zz_plain(x, taps, shift, order, eff_bps,
+                                     sum_taps_max)
+    rows, n, t = _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max)
+    zz = torch.empty_like(x)
+    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 3),
+           [x, taps, shift, order, zz], [rows, n, t], "lpc_residual_zz")
+    lpc_residual_zz.launches += 1
+    return zz
+
+
+lpc_residual_stats.launches = 0
+lpc_residual_zz.launches = 0

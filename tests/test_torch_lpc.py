@@ -1,0 +1,150 @@
+"""flacx_torch LPC stages against flacx on the CPU.
+
+The same numpy inputs go through both packages: Levinson-Durbin within
+f64 rounding noise, the quantized coefficients and shifts exactly, and the
+integer residual statistics and zigzag residual (the ``lpc_residual``
+kernel's plain version) exactly.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import flacx.ops  # noqa: F401  (x64)
+import jax
+import jax.numpy as jnp
+from flacx.ops import lpc as fx_lpc
+from flacx.ops.rice import zigzag as fx_zigzag
+
+from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
+                                              lpc_residual_zz)
+from flacx_torch.ops import lpc
+
+from conftest import make_pcm
+
+torch.set_num_threads(1)
+
+N, P, PREC = 4608, 12, 5
+SUM_TAPS_MAX = P << (PREC - 1)
+
+
+def virtual_channels(seed: int, b: int, kind: str) -> np.ndarray:
+    """``[B, 4, N]`` int32 L, R, M, S of 16-bit stereo PCM."""
+    pcm = make_pcm(np.random.default_rng(seed), b * N, 2, 16, kind)
+    planar = pcm.T.reshape(2, b, N).transpose(1, 0, 2).astype(np.int32)
+    left, right = planar[:, 0], planar[:, 1]
+    return np.stack([left, right, (left + right) >> 1, left - right], 1)
+
+
+@pytest.fixture(scope="module")
+def analysed():
+    """Virtual channels of tonal and noise frames with their windowed
+    autocorrelation (one silent frame makes the recursion degenerate)."""
+    x_v = np.concatenate([virtual_channels(3, 3, "tonal"),
+                          virtual_channels(4, 2, "noise")], axis=0)
+    x_v[-1] = 0
+    w32 = lpc.apodization_window_np("tukey(0.5)", N).astype(np.float32)
+    autoc = lpc.autocorrelate(torch.from_numpy(x_v), P,
+                              window=lpc.window_from_numpy(w32)).numpy()
+    return x_v, autoc
+
+
+@pytest.fixture(scope="module")
+def fx_levinson(analysed):
+    _, autoc = analysed
+    fn = jax.jit(fx_lpc.levinson_all_orders, static_argnums=1)
+    return [np.asarray(a) for a in fn(jnp.asarray(autoc), P)]
+
+
+def test_levinson_matches_flacx(analysed, fx_levinson):
+    _, autoc = analysed
+    taps, err, valid = lpc.levinson_all_orders(torch.from_numpy(autoc), P)
+    ref_taps, ref_err, ref_valid = fx_levinson
+    np.testing.assert_array_equal(valid.numpy(), ref_valid)
+    assert not ref_valid[-1].any() and ref_valid[0].all()
+    ok = ref_valid[..., None]
+    np.testing.assert_allclose(np.where(ok, taps.numpy(), 0),
+                               np.where(ok, ref_taps, 0), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(np.where(ref_valid, err.numpy(), 0),
+                               np.where(ref_valid, ref_err, 0), rtol=1e-9)
+
+
+@pytest.mark.parametrize("precision", [5, 12, 15])
+def test_quantize_matches_flacx(fx_levinson, precision):
+    ref_taps = -np.nan_to_num(fx_levinson[0])
+    q, s, ok = lpc.quantize_all_orders(torch.from_numpy(ref_taps), precision)
+    fq, fs, fok = jax.jit(fx_lpc.quantize_all_orders, static_argnums=1)(
+        jnp.asarray(ref_taps), precision)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(fq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(fs))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(fok))
+    assert q.dtype == torch.int32 and s.dtype == torch.int32
+
+
+def test_round_half_even_like_jnp_rint():
+    v = np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5])
+    np.testing.assert_array_equal(torch.round(torch.from_numpy(v)).numpy(),
+                                  np.asarray(jnp.rint(jnp.asarray(v))))
+
+
+@pytest.fixture(scope="module")
+def chosen(analysed, fx_levinson):
+    """Each row's quantized predictor at a seeded order 1..P, padded."""
+    x_v, _ = analysed
+    q, s, _ = lpc.quantize_all_orders(
+        torch.from_numpy(-np.nan_to_num(fx_levinson[0])), PREC)
+    rng = np.random.default_rng(7)
+    order = rng.integers(1, P + 1, size=x_v.shape[:2]).astype(np.int32)
+    o = torch.from_numpy(order).long() - 1
+    taps = q.gather(2, o[..., None, None].expand(*o.shape, 1, P))[:, :, 0]
+    shift = s.gather(2, o[..., None])[..., 0]
+    return (x_v, taps.numpy().astype(np.int32),
+            shift.numpy().astype(np.int32), order)
+
+
+def test_residual_stats_and_zz_match_flacx(chosen):
+    x_v, taps, shift, order = chosen
+    res_fn = jax.jit(functools.partial(
+        fx_lpc.predict_residual_fused, eff_bps=17, sum_taps_max=SUM_TAPS_MAX,
+        use_tile_kernel=False))
+    ref_res, ref_lzz, ref_max = (np.asarray(a) for a in res_fn(
+        jnp.asarray(x_v), jnp.asarray(taps), jnp.asarray(shift),
+        jnp.asarray(order)))
+    args = [torch.from_numpy(a) for a in (x_v, taps, shift, order)]
+    res, lzz, maxabs = lpc.predict_residual_fused(*args, 17, SUM_TAPS_MAX)
+    np.testing.assert_array_equal(res.numpy(), ref_res)
+    np.testing.assert_array_equal(lzz.numpy(), ref_lzz)
+    np.testing.assert_array_equal(maxabs.numpy(), ref_max)
+
+    # the kernel wrappers on CPU tensors: stats mode, and zz mode as the
+    # encoder derives the emitted residual (zigzag, warmup zeroed)
+    k_lzz, k_max = lpc_residual_stats(*args, 17, SUM_TAPS_MAX)
+    np.testing.assert_array_equal(k_lzz.numpy(), ref_lzz)
+    np.testing.assert_array_equal(k_max.numpy(), ref_max)
+    in_resid = np.arange(N) >= order[..., None]
+    ref_zz = np.asarray(fx_zigzag(jnp.asarray(ref_res))) * in_resid
+    zz = lpc_residual_zz(*args, 17, max(SUM_TAPS_MAX, 15))
+    assert zz.dtype == torch.int32
+    np.testing.assert_array_equal(zz.numpy(), ref_zz)
+
+
+def test_residual_wrappers_refuse_past_int32_bound(chosen):
+    x_v, taps, shift, order = chosen
+    args = [torch.from_numpy(a) for a in (x_v, taps, shift, order)]
+    with pytest.raises(NotImplementedError, match="int32 MAC"):
+        lpc_residual_stats(*args, 25, 32 << 14)
+    with pytest.raises(NotImplementedError, match="int32 MAC"):
+        lpc_residual_zz(*args, 25, 32 << 14)
+
+
+def test_window_table_matches_flacx():
+    for name in ("tukey(0.5)", "hann", "welch", "gauss(0.3)"):
+        for n in (64, 4608):
+            np.testing.assert_array_equal(
+                lpc.apodization_window_np(name, n),
+                fx_lpc.apodization_window_np(name, n))
+    w = lpc.window_from_numpy(np.ones(8, np.float32))
+    assert w.dtype == torch.float32 and w.device.type == "cpu"

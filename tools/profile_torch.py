@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Where the time of flacx_torch's headline encode goes, on one card.
+
+    python3 tools/profile_torch.py [--batches 3] [--out profile_out]
+
+Encodes the headline batch (1024 frames of block 4608, LPC order 12,
+16-bit stereo, the two-tone test signal from seed 0xF1AC) with
+``BatchEncoder.encode_batch_device`` under ``torch.profiler`` and prints:
+the wall time per batch, the device time per batch (sum of kernel times)
+and the device's idle share of the window, the kernel time and host time
+of each pipeline stage (profiler ranges around the stage functions), and
+the top device kernels.  Times are taken under the profiler, whose own
+host cost inflates the wall time.
+The full kernel table goes to ``<out>/profile_torch.txt``.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+#: stage name → (module, attribute) of the function the stage runs
+STAGES = {
+    "analysis kernel": ("flacx_torch.encoder", "analysis"),
+    "levinson": ("flacx_torch.encoder", "levinson_all_orders"),
+    "quantize": ("flacx_torch.encoder", "quantize_all_orders"),
+    "lpc_residual stats kernel": ("flacx_torch.encoder",
+                                  "lpc_residual_stats"),
+    "lpc_residual zz kernel": ("flacx_torch.encoder", "lpc_residual_zz"),
+    "rice_stats kernel": ("flacx_torch.encoder", "rice_stats"),
+    "rice plan": ("flacx_torch.ops.rice", "exact_plan"),
+    "frame header": ("flacx_torch.encoder", "frame_header_symbols"),
+    "emit symbols + frame_pack": ("flacx_torch.encoder", "pack_frames"),
+    "frame_pack kernel": ("flacx_torch.ops.framepack", "frame_pack"),
+}
+#: stages that run inside another stage (not added to the staged total)
+NESTED = {"frame_pack kernel"}
+
+
+def annotate_stages(torch) -> None:
+    """Wrap each stage function in a profiler range of the stage's name."""
+    import importlib
+
+    for label, (mod_name, attr) in STAGES.items():
+        module = importlib.import_module(mod_name)
+        fn = getattr(module, attr)
+
+        @functools.wraps(fn)
+        def wrapped(*args, _fn=fn, _label=label, **kwargs):
+            with torch.profiler.record_function(f"stage: {_label}"):
+                return _fn(*args, **kwargs)
+        setattr(module, attr, wrapped)
+
+
+def device_us(evt) -> float:
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch: CUDA is not available", file=sys.stderr)
+        return 1
+    from chip_smoke import B, N, SEED, card_line, synth_pcm
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+
+    annotate_stages(torch)
+    enc = BatchEncoder(EncoderConfig(block_size=N, max_lpc_order=12),
+                       batch_frames=B)
+    pcm = synth_pcm(np.random.default_rng(SEED), N * B)
+    planar = torch.from_numpy(np.ascontiguousarray(
+        pcm.reshape(B, N, 2).transpose(0, 2, 1).astype(np.int16))).cuda()
+    for _ in range(2):                                   # warm-up, build
+        enc.encode_batch_device(planar, 0)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.batches):
+            enc.encode_batch_device(planar, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.batches
+    events = prof.key_averages()
+    kernels = [e for e in events if self_device_us(e) > 0
+               and "CUDA" in str(getattr(e, "device_type", "CUDA"))
+               and not e.key.startswith("stage: ")]
+    dev_ms = sum(self_device_us(e) for e in kernels) / 1e3 / args.batches
+    n_kernels = sum(e.count for e in kernels) / args.batches
+
+    print(f"card {card_line()}; torch {torch.__version__}")
+    print(f"wall {wall_ms:.3f} ms per batch; device busy {dev_ms:.3f} ms "
+          f"per batch ({n_kernels:.0f} kernel launches); device idle share "
+          f"{max(0.0, 1 - dev_ms / wall_ms):.4f}")
+    print("per batch by stage: kernel ms (device time of the stage's "
+          "kernels), host ms (host time inside the stage)")
+    k_staged = h_staged = 0.0
+    stages = [e for e in events if e.key.startswith("stage: ")
+              and "CUDA" not in str(getattr(e, "device_type", "CPU"))]
+    for e in sorted(stages, key=lambda e: e.cpu_time_total, reverse=True):
+        k_ms = device_us(e) / 1e3 / args.batches
+        h_ms = e.cpu_time_total / 1e3 / args.batches
+        if e.key[7:] not in NESTED:
+            k_staged += k_ms
+            h_staged += h_ms
+        print(f"  {e.key[7:]:<28} kernel {k_ms:8.3f}  host {h_ms:8.3f}")
+    print(f"  {'rest of _encode_batch':<28} kernel {dev_ms - k_staged:8.3f}"
+          f"  host {wall_ms - h_staged:8.3f}")
+    print("top device kernels (ms per batch):")
+    for e in sorted(kernels, key=self_device_us, reverse=True)[:15]:
+        print(f"  {self_device_us(e) / 1e3 / args.batches:8.3f}  "
+              f"x{e.count // args.batches:<5} {e.key[:90]}")
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    sort = ("self_device_time_total"
+            if hasattr(kernels[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    (out / "profile_torch.txt").write_text(
+        events.table(sort_by=sort, row_limit=80))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
