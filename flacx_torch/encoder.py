@@ -3,18 +3,22 @@
 A batch of ``[B, channels, block_size]`` PCM blocks flows through one
 pipeline on the device:
 
-  stereo candidates → analysis (autocorrelation + fixed-order sums,
-  ``analysis`` kernel) → Levinson-Durbin and quantization of every order
-  → candidate ranking (LPC statistics, ``lpc_residual`` kernel in stats
-  mode) → stereo mode choice → chosen zigzag residual (``lpc_residual``
-  in zz mode) → exact Rice search (``rice_stats`` kernel + plan) →
-  emit, pack and CRC-16 (``frame_pack`` kernel)
+  stereo candidates → wasted bits → per window: analysis (autocorrelation
+  + fixed-order sums, ``analysis`` kernel) → Levinson-Durbin and
+  quantization of every order → [exact search: every order's residual
+  statistics, ``lpc_allorder`` kernel] → window merge → order choice
+  (estimate search: the chosen order's statistics, ``lpc_residual``
+  kernel in stats mode) → stereo mode choice (exact search: on every
+  virtual channel's exact Rice plan) → chosen zigzag residual
+  (``lpc_residual`` in zz mode) → exact Rice search (``rice_stats`` kernel
+  + plan) → emit, pack and CRC-16 (``frame_pack`` kernel)
 
 yielding complete, CRC'd FLAC frames as byte rows.  On the CPU every
 kernel is replaced by its plain PyTorch version.
 
-This slice covers the estimate-mode order search with one window, f32
-analysis and the single-int32 MAC.  Other configurations raise
+Both order searches, f32 and f64 analysis, any number of windows and
+wasted bits are covered, under the single-int32 MAC and the kernels'
+shared-memory limits.  Other configurations raise
 ``NotImplementedError`` naming the slice that will bring them.
 """
 
@@ -31,14 +35,19 @@ from flacx_torch.device import resolve_device
 from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
                                 Channels)
 from flacx_torch.kernels.analysis import analysis
+from flacx_torch.kernels.frame_pack import SMEM_LIMIT as FRAME_SMEM_LIMIT
+from flacx_torch.kernels.lpc_allorder import lpc_allorder
 from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
                                               lpc_residual_zz)
+from flacx_torch.kernels.rice_stats import SMEM_LIMIT as RICE_SMEM_LIMIT
 from flacx_torch.kernels.rice_stats import rice_stats
+from flacx_torch.kernels.rice_stats import smem_bytes as rice_smem_bytes
 from flacx_torch.ops import emit, rice
 from flacx_torch.ops.framepack import pack_frames
 from flacx_torch.ops.headers import frame_header_symbols
 from flacx_torch.ops.lpc import (apodization_window_np, levinson_all_orders,
-                                 mac_int32_ok, quantize_all_orders,
+                                 mac_int32_ok, merge_windows,
+                                 quantize_all_orders, window_candidates,
                                  window_from_numpy)
 
 _INF = 1 << 50
@@ -169,29 +178,56 @@ def config_from_flacx(d: dict) -> EncoderConfig:
 
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` for configurations this slice of the
-    port does not encode."""
+    port does not encode (the same on every device)."""
     later = []
     if cfg.conformance:
         later.append("conformance=True (conformance slice)")
-    if cfg.order_search != "estimate":
-        later.append("order_search='exact' (exact-search slice)")
-    if cfg.analysis_dtype == "f64":
-        later.append("analysis_dtype='f64' (exact-search slice)")
-    if len(cfg.windows) != 1:
-        later.append("more than one window (multi-window slice)")
-    if cfg.wasted_bits:
-        later.append("wasted_bits=True (wasted-bits slice)")
     if cfg.bps > 17:
         later.append(f"bps {cfg.bps} > 17 (hi-res slice)")
     elif not mac_int32_ok(cfg.eff_bps, max(cfg.sum_taps_max, 15)):
         later.append("a width past the int32 MAC bound (hi-res slice)")
-    psize_min = cfg.block_size >> max(cfg.porders)
-    if not emit.blocked_layout_ok(cfg.block_size, psize_min):
-        later.append(f"finest partition size {psize_min} "
-                     "(segmented layout, hi-res slice)")
+    max_po = max(cfg.porders)
+    if rice_smem_bytes(max_po, cfg.kmax) > RICE_SMEM_LIMIT:
+        later.append(f"2^{max_po} partitions at kmax {cfg.kmax}, past "
+                     "rice_stats' shared memory (hi-res slice)")
+    if cfg.max_frame_bytes > FRAME_SMEM_LIMIT:
+        later.append(f"frames of {cfg.max_frame_bytes} bytes, past "
+                     "frame_pack's shared memory (hi-res slice)")
     if later:
         raise NotImplementedError("flacx_torch does not encode yet: "
                                   + "; ".join(later))
+
+
+def analysis_dtype(cfg: EncoderConfig) -> torch.dtype:
+    """The LPC analysis float type: f64 for ``analysis_dtype="f64"``, and
+    for ``"auto"`` under the exact order search; else f32."""
+    if cfg.analysis_dtype == "f64" or (cfg.analysis_dtype == "auto"
+                                       and cfg.order_search == "exact"):
+        return torch.float64
+    return torch.float32
+
+
+def analysis_windows(cfg: EncoderConfig, device: torch.device,
+                     ) -> tuple[torch.Tensor, ...]:
+    """One ``[block_size]`` apodization window per name in
+    ``cfg.windows``, in the analysis float type, on ``device``."""
+    np_dtype = np.float64 if analysis_dtype(cfg) == torch.float64 \
+        else np.float32
+    return tuple(window_from_numpy(apodization_window_np(name, cfg.block_size)
+                                   .astype(np_dtype)).to(device)
+                 for name in cfg.windows)
+
+
+def shared_trailing_zeros(x: torch.Tensor) -> torch.Tensor:
+    """Low zero bits shared by every sample of each row of int32 ``x
+    [..., n]``: the least trailing-zero count of its samples, 63 for a row
+    of zeros.  Integer ops only: each sample's lowest set bit, the row's
+    least one, its bit length."""
+    x64 = x.long()
+    low = x64 & -x64
+    none = torch.iinfo(torch.int64).max
+    least = torch.where(low == 0, none, low).amin(-1)
+    return torch.where(least == none, 63, rice.bit_length(least) - 1)
 
 
 def _gather_pair(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -201,10 +237,13 @@ def _gather_pair(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
-                  window: torch.Tensor) -> dict:
+                  windows: torch.Tensor | tuple[torch.Tensor, ...] | None
+                  = None) -> dict:
     """pcm int16/int32 ``[B, channels, N]`` → frames ``[B, max_bytes]``.
 
-    ``window`` is the f32 ``[N]`` apodization window on ``pcm``'s device.
+    ``windows`` holds one ``[N]`` apodization window per name in
+    ``cfg.windows``, in the analysis float type, on ``pcm``'s device (a
+    lone tensor for one window); None builds them from ``cfg``.
     Returns a dict of device tensors: ``bytes`` (u8), ``length``, ``kind``,
     ``channel_code`` and ``subframe_bits``.
     """
@@ -215,7 +254,16 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     t = cfg.max_taps
     prec = cfg.qlp_precision
     kmax = cfg.kmax
+    exact = cfg.order_search == "exact"
     dev = pcm.device
+    if windows is None:
+        windows = analysis_windows(cfg, dev)
+    elif isinstance(windows, torch.Tensor):
+        windows = (windows,)
+    adt = analysis_dtype(cfg)
+    if len(windows) != len(cfg.windows) or any(
+            w.dtype != adt for w in windows):
+        raise ValueError(f"expected {len(cfg.windows)} {adt} windows")
 
     def ar(*args):
         return torch.arange(*args, dtype=torch.int64, device=dev)
@@ -234,51 +282,78 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     bps_v = torch.tensor(bps_list, dtype=torch.int64,
                          device=dev).expand(b, nv)               # [B, V]
 
-    # ----- candidate analysis: fixed orders 0..4, LPC orders 1..P --------
-    autoc, fzz_sum = analysis(x_v, window, p)
+    # ----- wasted bits: strip each virtual channel's shared low zeros ----
+    if cfg.wasted_bits:
+        w_v = torch.minimum(shared_trailing_zeros(x_v), bps_v - 1)
+        x_v = x_v >> w_v[..., None].to(torch.int32)
+        bps_v = bps_v - w_v
+    else:
+        w_v = torch.zeros((b, nv), dtype=torch.int64, device=dev)
+
+    # ----- candidate analysis: fixed orders 0..4, LPC orders 1..P per
+    # window, the windows merged per (frame, channel, order) -------------
+    lorders = ar(1, p + 1)
+    lcounts = n - lorders
+    sum_taps_max = cfg.sum_taps_max
+    best = None
+    fzz_sum = None
+    for name, window in zip(cfg.windows, windows):
+        # the fixed-order sums do not depend on the window: first one only
+        autoc, fsums = analysis(x_v, window, p, fixed_sums=fzz_sum is None)
+        fzz_sum = fzz_sum if fsums is None else fsums
+        if not p:
+            break
+        taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
+        # Levinson returns the analysis polynomial a[1:]; the prediction
+        # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation
+        qcoefs_w, qshifts_w, valid_q = quantize_all_orders(-taps_f, prec)
+        if exact:
+            lzz_w, lmax_w = lpc_allorder(x_v, qcoefs_w, qshifts_w,
+                                         cfg.eff_bps, sum_taps_max)
+        else:
+            # the error power is in the windowed domain: undo the window's
+            # average power so fixed (unwindowed) and LPC estimates, and
+            # different windows, compare; E|r| ≈ sqrt(2/π)·σ
+            win_pow = float(np.mean(apodization_window_np(name, n) ** 2))
+            sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0)
+                               / (n * win_pow))
+            mean_abs = math.sqrt(2.0 / math.pi) * sigma
+            lzz_w, lmax_w = (2.0 * mean_abs * lcounts.double()).long(), None
+        best = merge_windows(best, window_candidates(
+            lzz_w, lmax_w, qcoefs_w, qshifts_w, valid_ld & valid_q))
+
     fixed_orders = ar(5)
     fest = (rice.estimate_bits(fzz_sum, n - fixed_orders, kmax)
             + 8 + fixed_orders * bps_v[..., None])
     fixed_bits = fest.amin(-1)
     fixed_order = fest.argmin(-1).to(torch.int32)
-    sum_taps_max = cfg.sum_taps_max
-    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)   # [5, 4]
 
     if p:
-        taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
-        # Levinson returns the analysis polynomial a[1:]; the prediction
-        # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation
-        qcoefs, qshifts, valid_q = quantize_all_orders(-taps_f, prec)
-        lpc_valid = valid_ld & valid_q                          # [B, V, P]
-        lorders = ar(1, p + 1)
-        lcounts = n - lorders
-        # the error power is in the windowed domain: undo the window's
-        # average power so fixed (unwindowed) and LPC estimates compare;
-        # E|r| ≈ sqrt(2/π)·σ
-        wnp = apodization_window_np(cfg.windows[0], n)
-        win_pow = float(np.mean(wnp ** 2))
-        sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0) / (n * win_pow))
-        mean_abs = math.sqrt(2.0 / math.pi) * sigma
-        lzz_sum = (2.0 * mean_abs * lcounts.double()).long()
-        lest = (rice.estimate_bits(lzz_sum, lcounts, kmax) + 8
+        lest = (rice.estimate_bits(best.lzz, lcounts, kmax) + 8
                 + lorders * bps_v[..., None] + 9 + lorders * prec)
-        lest = torch.where(lpc_valid, lest, _INF)
+        lest = torch.where(best.valid, lest, _INF)
         lo0 = lest.argmin(-1)                                   # [B, V]
         lpc_order = (lo0 + 1).to(torch.int32)
-        taps_lpc_v = qcoefs.gather(
+        taps_lpc_v = best.qcoefs.gather(
             2, lo0[..., None, None].expand(b, nv, 1, p))[:, :, 0]
-        shift_lpc_v = qshifts.gather(2, lo0[..., None])[..., 0]
-        # cross-family comparison on EXACT magnitude sums (the Levinson
-        # error is optimistic about post-quantization residuals)
-        lzz_exact, lpc_maxabs = lpc_residual_stats(
-            x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
-            lpc_order, cfg.eff_bps, sum_taps_max)
+        shift_lpc_v = best.qshifts.gather(2, lo0[..., None])[..., 0]
+        if exact:
+            # every order's exact statistics exist: take the chosen one's
+            lzz_exact = best.lzz.gather(-1, lo0[..., None])[..., 0]
+            lpc_maxabs = best.maxabs.gather(-1, lo0[..., None])[..., 0]
+        else:
+            # cross-family comparison on EXACT magnitude sums (the
+            # Levinson error is optimistic about post-quantization
+            # residuals)
+            lzz_exact, lpc_maxabs = lpc_residual_stats(
+                x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
+                lpc_order, cfg.eff_bps, sum_taps_max)
         lo64 = lpc_order.long()
         lpc_bits = (rice.estimate_bits(lzz_exact, n - lo64, kmax)
                     + 8 + lo64 * bps_v + 9 + lo64 * prec)
         # residuals that cannot survive the int32 working dtype make the
         # LPC candidate ineligible (verbatim/fixed win instead)
-        lpc_ok = (lpc_valid.gather(-1, lo0[..., None])[..., 0]
+        lpc_ok = (best.valid.gather(-1, lo0[..., None])[..., 0]
                   & (lpc_maxabs < (1 << 30)))
         lpc_bits = torch.where(lpc_ok, lpc_bits, _INF)
         pred_is_lpc = lpc_bits < fixed_bits
@@ -291,9 +366,42 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     pred_bits = torch.minimum(fixed_bits, lpc_bits)
     pred_order = torch.where(pred_is_lpc, lpc_order, fixed_order)
 
+    # each virtual channel's chosen taps, merged across the two families
+    # and padded to max_taps
+    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)   # [5, 4]
+    taps_fix = torch.nn.functional.pad(taps_fix4[fixed_order.long()],
+                                       (0, t - 4))
+    taps_lpc = torch.nn.functional.pad(taps_lpc_v,
+                                       (0, t - taps_lpc_v.shape[-1]))
+    taps_v = torch.where(pred_is_lpc[..., None], taps_lpc, taps_fix) \
+        .to(torch.int32)
+    shift_v = torch.where(pred_is_lpc, shift_lpc_v, 0).to(torch.int32)
+
     const_ok = (x_v == x_v[..., :1]).all(-1)                    # [B, V]
     const_bits = torch.where(const_ok, 8 + bps_v, _INF)
     verb_bits = 8 + n * bps_v
+
+    def residual_plan(x, taps, shift, order):
+        """The zigzag residual of the chosen taps and its exact Rice
+        plan."""
+        order = order.contiguous()
+        zz = lpc_residual_zz(x, taps.contiguous(), shift.contiguous(), order,
+                             cfg.eff_bps, max(sum_taps_max, 15))
+        stats = rice_stats(zz, order, cfg.porders, kmax)
+        return zz, rice.exact_plan(zz, order, cfg.porders,
+                                   cfg.preferred_porders, kmax,
+                                   allow_escape=cfg.escapes,
+                                   kernel_stats=stats)
+
+    # exact mode ranks the stereo modes by the exact Rice plan of every
+    # virtual channel; the plan of the winning pair is then emitted
+    plan_v = None
+    if cfg.use_stereo_modes and exact:
+        zz_v, plan_v = residual_plan(x_v, taps_v, shift_v, pred_order)
+        po64 = pred_order.long()
+        pred_bits = (8 + po64 * bps_v
+                     + torch.where(pred_is_lpc, 9 + po64 * prec, 0)
+                     + plan_v.bits)
     cost_v = torch.minimum(torch.minimum(pred_bits, verb_bits), const_bits)
 
     # ----- stereo mode / channel selection --------------------------------
@@ -305,13 +413,11 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
         mode = mode_cost.argmin(-1)                                  # [B]
         ch_code = codes[mode]
         sel = pairs[mode]                                            # [B,2]
-        c = 2
 
         def gather_v(arr):
             return _gather_pair(arr, sel)
     else:
-        c = cfg.channels
-        ch_code = torch.full((b,), int(INDEPENDENT_CHANNELS[c]),
+        ch_code = torch.full((b,), int(INDEPENDENT_CHANNELS[cfg.channels]),
                              dtype=torch.int32, device=dev)
 
         def gather_v(arr):
@@ -321,26 +427,16 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     is_lpc = gather_v(pred_is_lpc)
     order = gather_v(pred_order)
     const_sel = gather_v(const_ok)
-    f_order = gather_v(fixed_order)
     bps_c = gather_v(bps_v)
-
-    # chosen taps, merged across the two families and padded to max_taps
-    taps_fix = torch.nn.functional.pad(taps_fix4[f_order.long()],
-                                       (0, t - 4))
-    taps_lpc = torch.nn.functional.pad(gather_v(taps_lpc_v),
-                                       (0, t - taps_lpc_v.shape[-1]))
-    taps = torch.where(is_lpc[..., None], taps_lpc, taps_fix) \
-        .to(torch.int32).contiguous()
-    shift = torch.where(is_lpc, gather_v(shift_lpc_v), 0) \
-        .to(torch.int32).contiguous()
+    taps = gather_v(taps_v).contiguous()
+    shift = gather_v(shift_v).contiguous()
 
     # ----- chosen residual and its exact Rice plan ------------------------
-    zz = lpc_residual_zz(x_sel, taps, shift, order.contiguous(),
-                         cfg.eff_bps, max(sum_taps_max, 15))
-    stats = rice_stats(zz, order.contiguous(), cfg.porders, kmax)
-    plan = rice.exact_plan(zz, order, cfg.porders, cfg.preferred_porders,
-                           kmax, allow_escape=cfg.escapes,
-                           kernel_stats=stats)
+    if plan_v is None:
+        zz, plan = residual_plan(x_sel, taps, shift, order)
+    else:
+        zz = gather_v(zz_v)
+        plan = rice.RicePlan(*(gather_v(f) for f in plan_v))
 
     # ----- final kind by exact size ---------------------------------------
     order64 = order.long()
@@ -359,7 +455,8 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     hdr = frame_header_symbols(first_index + ar(b), ch_code, n)
     frame_bytes, length = pack_frames(
         hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift, prec,
-        zz, plan, n >> max(cfg.porders), cfg.max_frame_bytes)
+        zz, plan, n >> max(cfg.porders), cfg.max_frame_bytes,
+        wasted=gather_v(w_v))
     return {"bytes": frame_bytes, "length": length, "kind": kind,
             "channel_code": ch_code, "subframe_bits": sub_bits}
 
@@ -377,9 +474,7 @@ class BatchEncoder:
         self.config = config
         self.batch_frames = batch_frames
         self.device = resolve_device(device)
-        wnp = apodization_window_np(config.windows[0], config.block_size)
-        self._window = window_from_numpy(wnp.astype(np.float32)) \
-            .to(self.device)
+        self._windows = analysis_windows(config, self.device)
 
     def encode_batch_device(self, pcm, first_index: int) -> dict:
         """Run the pipeline on ``[B, channels, N]`` int16 or int32 PCM
@@ -395,7 +490,7 @@ class BatchEncoder:
                              f"[B, {self.config.channels}, "
                              f"{self.config.block_size}]")
         return _encode_batch(self.config, arr.to(self.device), first_index,
-                             self._window)
+                             self._windows)
 
     def _drain(self, result: dict, valid: int,
                stats: dict | None) -> list[bytes]:

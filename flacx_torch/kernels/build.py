@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parents[1] / "_build"
-KERNELS = ("analysis", "lpc_residual", "rice_stats", "frame_pack")
+KERNELS = ("analysis", "lpc_residual", "lpc_allorder", "rice_stats",
+           "frame_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,9 +116,11 @@ def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
 def launch(fn, tensors: list[torch.Tensor], ints: list[int],
            what: str) -> None:
     """Call a bound kernel launcher on the current stream; raise on a
-    refused launch (the code is ``cudaGetLastError()`` after it)."""
+    refused launch (the code is ``cudaGetLastError()`` after it).  A
+    ``None`` in ``tensors`` passes a null pointer."""
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+    rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
+            stream)
     if rc:
         raise RuntimeError(f"flacx_torch: {what} launch failed with CUDA "
                            f"error {rc}")

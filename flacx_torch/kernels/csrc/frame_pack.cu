@@ -4,15 +4,21 @@
 //
 // Replaces the TPU chain flacx/kernels/emit_tile.py::emit_sample_tiles ->
 // bitpack_tile.py::merge_tiles_t -> bitpack_tile.py::merge_strings_t ->
-// crc_tile.py::crc16_packed_t (the caller there fixes the CRC's zero tail).
+// crc_tile.py::crc16_packed_t (the caller there fixes the CRC's zero tail)
+// of the blocked layout, and the classic symbol path's
+// bitpack_tile.py::merge_tiles -> bitpack_tile.py::merge_strings (with the
+// XLA CRC-16 fold after it) below 40-sample partitions.
 //
 // Semantics (flacx_torch.kernels.frame_pack.frame_pack_plain, byte for
-// byte): the frame's stream is
-//   [frame header] then per channel [subframe header]
-//   [33 head param slots][samples 0..psize-1]
-//   and per later segment s: [param slot 32+s][samples of segment s]
-// (the blocked layout of flacx_torch.ops.emit.interleave_slots without its
-// zero-length pad slots).  Each sample symbol is computed here as the
+// byte): the frame's stream is [frame header], then per channel
+// [subframe header], [param slots extra[0..n_extra)], and per segment s
+// [param slot mult[s]][samples of segment s], with the two tables of
+// emit.general_layout_tables.  That is the general layout of
+// flacx_torch.ops.emit.interleave_slots, and where its blocked layout
+// applies (psize >= 40) the same stream: there the head param slots 0..32
+// precede the first sample in both, only one of them carries bits
+// (partition 0's, before sample `order`), and the blocked layout's pad
+// slots are zero-length.  Each sample symbol is computed here as the
 // plain sample_symbols_from does: a Rice code as one <= 32-bit symbol, an
 // escaped raw residual, or a verbatim sample.  nbytes = ceil(bits / 8);
 // bytes [nbytes, nbytes+2) carry the CRC-16 (poly 0x18005, init 0) of the
@@ -20,7 +26,8 @@
 //
 // Bound on the card: bytes.  zz and x are read once (4 B/sample each) and
 // the output row written once: at the headline 1024 frames x 2 channels x
-// 4608 samples that is 75.5 MB in + 20.2 MB out, 28.6 us at 3.35 TB/s.
+// 4608 samples that is 75.5 MB in + 20.2 MB out, 28.6 us at 3.35 TB/s
+// (the same samples at block 1152: 4096 frames x 2 x 1152).
 // The per-symbol work (a scan step, a shift, one or two shared atomics) is
 // below that.
 //
@@ -41,7 +48,6 @@ namespace {
 
 constexpr int THREADS = 256;  // also the CRC table size
 constexpr int WARPS = THREADS / 32;
-constexpr int HEAD = 33;      // param slots before the first segment
 constexpr int KIND_VERBATIM = 1;
 constexpr int KIND_FIXED = 2;
 constexpr uint32_t POLY16 = 0x18005u;
@@ -57,9 +63,11 @@ struct Args {
   const int32_t* x;        // [B, C, N] samples
   const int32_t* kesc;     // [B, C, NSEG] k | escape << 7 per segment
   const int32_t* meta;     // [B, C, 3] kind, order, bps
+  const int32_t* extra;    // [n_extra] head param slots off the segment grid
+  const int32_t* mult;     // [N / psize] the param slot leading each segment
   uint8_t* out;            // [B, MFB]
   int32_t* length;         // [B]
-  int c, h, sh, p, n, psize, mfb;
+  int c, h, sh, p, n, psize, mfb, n_extra;
 };
 
 __device__ __forceinline__ uint32_t low_mask(int l) {
@@ -87,16 +95,14 @@ __device__ void symbol(const Args& a, int b, int s, uint32_t& v, int& l) {
   }
   q -= a.sh;
   int param = -1, i = 0;
-  if (q < HEAD) {
-    param = q;
-  } else if (q < HEAD + a.psize) {
-    i = q - HEAD;
+  if (q < a.n_extra) {
+    param = a.extra[q];
   } else {
-    const int u = q - HEAD - a.psize;
-    const int seg = 1 + u / (a.psize + 1);
-    const int r = u - (seg - 1) * (a.psize + 1);
+    const int u = q - a.n_extra;
+    const int seg = u / (a.psize + 1);
+    const int r = u - seg * (a.psize + 1);
     if (r == 0)
-      param = HEAD - 1 + seg;
+      param = a.mult[seg];
     else
       i = seg * a.psize + r - 1;
   }
@@ -239,26 +245,28 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
 }  // namespace
 
 // Symbol arrays as in Args; rows = B frames, c channels, h frame-header
-// slots, sh subframe-header slots, p = 33 + n / psize - 1 param slots,
+// slots, sh subframe-header slots, p = n_extra + n / psize param slots,
 // mfb = max_frame_bytes (a multiple of 4).  Returns the CUDA error code.
 FLACX_API int flacx_frame_pack(const long long* hdr_v, const int32_t* hdr_l,
                                const long long* sh_v, const int32_t* sh_l,
                                const long long* pv, const int32_t* pl,
                                const int32_t* zz, const int32_t* x,
                                const int32_t* kesc, const int32_t* meta,
+                               const int32_t* extra, const int32_t* mult,
                                uint8_t* out, int32_t* length, int rows, int c,
                                int h, int sh, int p, int n, int psize, int mfb,
-                               cudaStream_t stream) {
+                               int n_extra, cudaStream_t stream) {
   const int smem = mfb;  // mfb / 4 words
-  if (rows <= 0 || c < 1 || h < 0 || sh < 0 || psize < HEAD + 7 ||
-      n % psize != 0 || n <= psize || p != HEAD + n / psize - 1 || mfb <= 0 ||
-      mfb % 4 != 0 || smem > 200 * 1024)
+  if (rows <= 0 || c < 1 || h < 0 || sh < 0 || psize < 1 || n % psize != 0 ||
+      n_extra < 0 || p != n_extra + n / psize || mult == nullptr ||
+      (n_extra > 0 && extra == nullptr) || mfb <= 0 || mfb % 4 != 0 ||
+      smem > 200 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       frame_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  Args a{hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, out, length,
-         c, h, sh, p, n, psize, mfb};
+  Args a{hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
+         out, length, c, h, sh, p, n, psize, mfb, n_extra};
   frame_pack_kernel<<<rows, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -4,20 +4,37 @@ from the encoder's chosen subframes.
 
 Replaces the TPU chain ``flacx/kernels/emit_tile.py::emit_sample_tiles``
 → ``bitpack_tile.py::merge_tiles_t`` → ``bitpack_tile.py::merge_strings_t``
-→ ``crc_tile.py::crc16_packed_t``; source, bound and design in
-``csrc/frame_pack.cu``.  Its plain version is the classic symbol chain:
-``emit`` symbols → merge-tree packer → CRC-16 fold.
+→ ``crc_tile.py::crc16_packed_t`` of the blocked slot layout, and the
+classic path's ``bitpack_tile.py::merge_tiles`` → ``merge_strings`` below
+40-sample partitions; source, bound and design in ``csrc/frame_pack.cu``.
+The kernel walks the general layout's slots, which give the blocked
+layout's stream wherever that applies.  Its plain version is the classic
+symbol chain: ``emit`` symbols → merge-tree packer → CRC-16 fold.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.bitpack import pack_symbols_words, words_to_bytes
 from flacx_torch.ops.crcfold import crc16_over_word_rows
-from flacx_torch.ops.emit import (blocked_layout_ok, interleave_slots,
+from flacx_torch.ops.emit import (general_layout_tables, interleave_slots,
                                   param_slot_positions, sample_symbols_from)
+
+
+#: Largest frame the kernel packs: its words live in shared memory (bytes).
+SMEM_LIMIT = 200 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_tables(n: int, psize_min: int, device: torch.device,
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The general layout's ``extra`` and ``mult`` tables on ``device``."""
+    return tuple(torch.tensor(t, dtype=torch.int32, device=device)
+                 for t in general_layout_tables(n, psize_min))
 
 
 def frame_pack_plain(hdr_v: torch.Tensor, hdr_l: torch.Tensor,
@@ -78,17 +95,16 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
       kesc: int32 ``[B, C, N // psize_min]`` per-segment ``k | escape << 7``.
       kind, order, bps: ``[B, C]`` chosen subframe kind, predictor order
         and sample width.
-      psize_min: finest partition size; the blocked slot layout must hold.
+      psize_min: finest partition size.
     """
     if x.device.type == "cpu":
         return frame_pack_plain(hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x,
                                 kesc, kind, order, bps, psize_min,
                                 max_frame_bytes)
     b, c, n = x.shape
-    if not blocked_layout_ok(n, psize_min):
-        raise NotImplementedError(
-            f"frame_pack: block {n} with finest partition {psize_min} needs "
-            "the segmented slot layout of the hi-res slice")
+    if n % psize_min:
+        raise ValueError(f"frame_pack: finest partition {psize_min} does "
+                         f"not divide block {n}")
     p = len(param_slot_positions(n, psize_min))
     dev = x.device
     check(hdr_v, "hdr_v", torch.int64, (b, hdr_v.shape[-1]), dev)
@@ -103,14 +119,21 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
     if max_frame_bytes % 4:
         raise ValueError("frame_pack: max_frame_bytes must be a multiple "
                          "of 4")
+    if max_frame_bytes > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"frame_pack: frames of {max_frame_bytes} bytes exceed the "
+            "kernel's shared memory; larger frames belong to the hi-res "
+            "slice")
     meta = torch.stack([kind, order, bps], dim=-1).to(torch.int32) \
         .contiguous()
+    extra, mult = _layout_tables(n, psize_min, dev)
     out = torch.empty((b, max_frame_bytes), dtype=torch.uint8, device=dev)
     length = torch.empty(b, dtype=torch.int32, device=dev)
-    launch(bind("frame_pack", "flacx_frame_pack", 12, 8),
-           [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, out, length],
+    launch(bind("frame_pack", "flacx_frame_pack", 14, 9),
+           [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
+            out, length],
            [b, c, hdr_v.shape[-1], sh_v.shape[-1], p, n, psize_min,
-            max_frame_bytes], "frame_pack")
+            max_frame_bytes, extra.numel()], "frame_pack")
     frame_pack.launches += 1
     return out, length
 

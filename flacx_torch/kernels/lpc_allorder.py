@@ -1,0 +1,72 @@
+"""The ``lpc_allorder`` kernel: Σ zigzag and max |res| of the integer LPC
+residual at every order 1..P of every row, the residuals never written.
+
+Replaces the TPU kernel ``flacx/kernels/lpcres_tile.py::
+lpc_allorder_stats``; source, bound and design in ``csrc/lpc_allorder.cu``.
+Only the single-int32 MAC is ported: the wrapper refuses widths past its
+bound.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flacx_torch.kernels.build import bind, check, launch
+from flacx_torch.kernels.lpc_residual import check_mac_bound
+from flacx_torch.ops.lpc import lpc_residuals_all
+from flacx_torch.ops.rice import zigzag
+
+MAX_ORDER = 32
+
+
+def lpc_allorder_plain(x: torch.Tensor, qcoefs: torch.Tensor,
+                       shifts: torch.Tensor, eff_bps: int, sum_taps_max: int,
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`lpc_allorder`."""
+    check_mac_bound("lpc_allorder", eff_bps, sum_taps_max)
+    p, n = qcoefs.shape[-2], x.shape[-1]
+    res = lpc_residuals_all(x, qcoefs, shifts, torch.int32)  # [..., P, n]
+    dev = x.device
+    warm = (torch.arange(n, device=dev)
+            < torch.arange(1, p + 1, device=dev)[:, None])
+    res = res.masked_fill(warm, 0)
+    return zigzag(res).sum(-1, dtype=torch.int64), res.abs().amax(-1)
+
+
+def lpc_allorder(x: torch.Tensor, qcoefs: torch.Tensor, shifts: torch.Tensor,
+                 eff_bps: int, sum_taps_max: int,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lzz int64 [..., P], maxabs int32 [..., P])``: for each order
+    ``o``, ``Σ zigzag(res_o)`` and ``max |res_o|`` where ``res_o[i] = x[i]
+    - (Σ_{j<o} qcoefs[o-1, j]·x[i-1-j] >> shifts[o-1])`` and ``res_o[i <
+    o] = 0``.
+
+    Args:
+      x: int32 ``[..., n]``.
+      qcoefs: int32 ``[..., P, T]`` (row ``o-1`` is the order-``o``
+        predictor, zero past its order; P, T ≤ 32).
+      shifts: int32 ``[..., P]``.
+      eff_bps, sum_taps_max: the static width bound the int32 MAC needs.
+    """
+    if x.device.type == "cpu":
+        return lpc_allorder_plain(x, qcoefs, shifts, eff_bps, sum_taps_max)
+    check_mac_bound("lpc_allorder", eff_bps, sum_taps_max)
+    lead = x.shape[:-1]
+    p, t = qcoefs.shape[-2:]
+    check(x, "x", torch.int32)
+    check(qcoefs, "qcoefs", torch.int32, (*lead, p, t), x.device)
+    check(shifts, "shifts", torch.int32, (*lead, p), x.device)
+    if not (1 <= p <= MAX_ORDER and 1 <= t <= MAX_ORDER) or x.shape[-1] < 1:
+        raise ValueError(f"lpc_allorder: {p} orders x {t} taps out of range")
+    lzz = torch.empty((*lead, p), dtype=torch.int64, device=x.device)
+    maxabs = torch.empty((*lead, p), dtype=torch.int32, device=x.device)
+    launch(bind("lpc_allorder", "flacx_lpc_allorder", 5, 4),
+           [x, qcoefs, shifts, lzz, maxabs],
+           [math.prod(lead), x.shape[-1], p, t], "lpc_allorder")
+    lpc_allorder.launches += 1
+    return lzz, maxabs
+
+
+lpc_allorder.launches = 0

@@ -21,10 +21,11 @@ from flacx_torch.ops.rice import zigzag
 MAX_TAPS = 32
 
 
-def _check_bound(eff_bps: int, sum_taps_max: int) -> None:
+def check_mac_bound(what: str, eff_bps: int, sum_taps_max: int) -> None:
+    """Refuse widths past the single-int32 MAC bound."""
     if not mac_int32_ok(eff_bps, sum_taps_max):
         raise NotImplementedError(
-            f"lpc_residual: eff_bps {eff_bps} with tap magnitude sum "
+            f"{what}: eff_bps {eff_bps} with tap magnitude sum "
             f"{sum_taps_max} breaks the int32 MAC bound; the two-limb MAC "
             "belongs to the hi-res slice")
 
@@ -34,7 +35,7 @@ def lpc_residual_stats_plain(x: torch.Tensor, taps: torch.Tensor,
                              eff_bps: int, sum_taps_max: int,
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`lpc_residual_stats`."""
-    _check_bound(eff_bps, sum_taps_max)
+    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
     _, lzz, maxabs = predict_residual_fused(x, taps, shift, order, eff_bps,
                                             sum_taps_max)
     return lzz, maxabs
@@ -44,14 +45,14 @@ def lpc_residual_zz_plain(x: torch.Tensor, taps: torch.Tensor,
                           shift: torch.Tensor, order: torch.Tensor,
                           eff_bps: int, sum_taps_max: int) -> torch.Tensor:
     """Plain version of :func:`lpc_residual_zz`."""
-    _check_bound(eff_bps, sum_taps_max)
+    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
     res, _, _ = predict_residual_fused(x, taps, shift, order, eff_bps,
                                        sum_taps_max)
     return zigzag(res)
 
 
 def _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max):
-    _check_bound(eff_bps, sum_taps_max)
+    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
     lead = x.shape[:-1]
     check(x, "x", torch.int32)
     check(taps, "taps", torch.int32, (*lead, taps.shape[-1]), x.device)

@@ -23,6 +23,11 @@ SMEM_LIMIT = 48 * 1024
 KMAX_LIMIT = 30
 
 
+def smem_bytes(max_po: int, kmax: int) -> int:
+    """Shared memory of the finest-level sums at ``2^max_po`` partitions."""
+    return (kmax + 2) * (1 << max_po) * 4
+
+
 def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                porders: Sequence[int], kmax: int) -> dict:
     """Per-level ``{po: (min4, arg4, min5, arg5, max)}`` of int32 ``zz``
@@ -41,7 +46,7 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                          f"divide block size {n}")
     if not 0 <= kmax <= KMAX_LIMIT:
         raise ValueError(f"rice_stats: kmax {kmax} out of range")
-    if (kmax + 2) * (1 << max_po) * 4 > SMEM_LIMIT:
+    if smem_bytes(max_po, kmax) > SMEM_LIMIT:
         raise NotImplementedError(
             f"rice_stats: 2^{max_po} partitions at kmax {kmax} exceed the "
             "kernel's shared memory; the many-partition search belongs to "

@@ -42,11 +42,14 @@ def subframe_header_symbols(kind: torch.Tensor, order: torch.Tensor,
                             bps: torch.Tensor, x: torch.Tensor,
                             taps: torch.Tensor, shift: torch.Tensor,
                             precision: int, plan: RicePlan,
+                            wasted: torch.Tensor | None = None,
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Header-region symbols: subframe header, wasted-bits unary (always
-    empty: this encoder strips no wasted bits), warmup (the constant value
-    rides in warmup slot 0), LPC meta + coefficients, residual meta.
-    Returns ``(values int64, lengths int32)`` of shape ``[B, C, 4 + 2T]``."""
+    """Header-region symbols: subframe header, wasted-bits unary, warmup
+    (the constant value rides in warmup slot 0), LPC meta + coefficients,
+    residual meta.  ``wasted`` ``[B, C]`` is each subframe's count of
+    stripped low zero bits (None: none); ``bps`` and ``x`` are then the
+    shifted width and samples.  Returns ``(values int64, lengths int32)``
+    of shape ``[B, C, 4 + 2T]``."""
     b, c, _ = x.shape
     t = taps.shape[-1]
     dev = x.device
@@ -55,17 +58,21 @@ def subframe_header_symbols(kind: torch.Tensor, order: torch.Tensor,
     is_pred = kind >= KIND_FIXED
     is_lpc = kind == KIND_LPC
 
-    # subframe header (1 bit pad + 6-bit type + wasted flag = 8 bits)
+    # subframe header (1 bit pad + 6-bit type + wasted flag = 8 bits),
+    # then the unary wasted count ((w-1) zeros and a one = w bits)
+    if wasted is None:
+        wasted = torch.zeros_like(kind)
+    has_wasted = wasted > 0
     order64 = order.long()
     type_code = torch.where(
         kind == KIND_CONSTANT, 0,
         torch.where(kind == KIND_VERBATIM, 1,
                     torch.where(kind == KIND_FIXED, 8 + order64,
                                 32 + order64 - 1)))
-    hdr_v = (type_code << 1)[..., None]
+    hdr_v = ((type_code << 1) | has_wasted.long())[..., None]
     hdr_l = torch.full((b, c, 1), 8, dtype=torch.int32, device=dev)
     wst_v = torch.ones((b, c, 1), dtype=torch.int64, device=dev)
-    wst_l = torch.zeros((b, c, 1), dtype=torch.int32, device=dev)
+    wst_l = torch.where(has_wasted, wasted, 0)[..., None].to(torch.int32)
 
     # warmup slots (constant value rides in slot 0)
     ti = torch.arange(t, dtype=torch.int32, device=dev)
@@ -159,6 +166,17 @@ def blocked_layout_ok(n: int, psize_min: int) -> bool:
             and n % psize_min == 0 and n > psize_min)
 
 
+def general_layout_tables(n: int, psize_min: int,
+                          ) -> tuple[list[int], list[int]]:
+    """Param-slot indices of the general layout: ``extra``, the head
+    slots off the segment grid (emitted first), and ``mult``, the slot
+    that leads each of the ``n // psize_min`` segments."""
+    ppos = param_slot_positions(n, psize_min)
+    extra = [j for j, pos in enumerate(ppos) if pos % psize_min]
+    mult = [j for j, pos in enumerate(ppos) if pos % psize_min == 0]
+    return extra, mult
+
+
 def interleave_slots(pv: torch.Tensor, sv: torch.Tensor,
                      psize_min: int) -> list[torch.Tensor]:
     """Emit param slots ``pv [B, C, P]`` so each precedes its partition's
@@ -185,9 +203,7 @@ def interleave_slots(pv: torch.Tensor, sv: torch.Tensor,
         rest = torch.cat([rest_p, rest_z, rest_s], dim=-1) \
             .reshape(b, c, (nseg - 1) * (psize_min + 8))
         return [pv[..., :33], z7, sv[..., :psize_min], rest]
-    ppos = param_slot_positions(n, psize_min)
-    extra = [j for j, pos in enumerate(ppos) if pos % psize_min]
-    mult = [j for j, pos in enumerate(ppos) if pos % psize_min == 0]
+    extra, mult = general_layout_tables(n, psize_min)
     seg = torch.cat([pv[..., mult][..., None],
                      sv.reshape(b, c, nseg, psize_min)], dim=-1) \
         .reshape(b, c, nseg * (psize_min + 1))
@@ -198,6 +214,7 @@ def subframe_symbols(kind: torch.Tensor, order: torch.Tensor,
                      bps: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
                      shift: torch.Tensor, precision: int, zz: torch.Tensor,
                      plan: RicePlan, psize_min: int,
+                     wasted: torch.Tensor | None = None,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Emit symbols for a batch of subframes.
 
@@ -211,11 +228,12 @@ def subframe_symbols(kind: torch.Tensor, order: torch.Tensor,
       zz: ``[B, C, N]`` zigzag residual magnitudes (0 at ``i < order``).
       plan: exact Rice plan for these residuals.
       psize_min: finest legal partition size.
+      wasted: ``[B, C]`` stripped low zero bits, or None.
     Returns:
       ``(values int64, lengths int32)`` of shape ``[B, C, slots]``.
     """
     hdr_v, hdr_l = subframe_header_symbols(kind, order, bps, x, taps,
-                                           shift, precision, plan)
+                                           shift, precision, plan, wasted)
     param_v, param_l = partition_param_symbols(kind, plan)
     samp_v, samp_l = sample_symbols(kind, order, bps, x, zz, plan)
     values = torch.cat([hdr_v, *interleave_slots(param_v, samp_v,

@@ -23,13 +23,14 @@ def pack_frames(hdr: HeaderSymbols, kind: torch.Tensor, order: torch.Tensor,
                 bps: torch.Tensor, x: torch.Tensor, taps: torch.Tensor,
                 shift: torch.Tensor, precision: int, zz: torch.Tensor,
                 plan: RicePlan, psize_min: int, max_frame_bytes: int,
+                wasted: torch.Tensor | None = None,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Frame bytes ``u8 [B, max_frame_bytes]`` (CRC-16 appended) and
     lengths ``int32 [B]`` of the chosen subframes; arguments as
     :func:`flacx_torch.ops.emit.subframe_symbols` plus the frame header
     symbols ``hdr``."""
     sh_v, sh_l = subframe_header_symbols(kind, order, bps, x, taps, shift,
-                                         precision, plan)
+                                         precision, plan, wasted)
     pv, pl = partition_param_symbols(kind, plan)
     kesc = plan.k_seg.to(torch.int32) | (plan.esc_seg.to(torch.int32) << 7)
     return frame_pack(hdr.values, hdr.lengths, sh_v, sh_l, pv, pl, zz, x,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import re
 from functools import lru_cache
 from math import cos, floor, pi
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -101,12 +102,15 @@ def autocorrelate(x: torch.Tensor, max_lag: int,
     """Autocorrelation for lags ``0..max_lag`` over the last axis.
 
     Drops the last product of each lag (the reference encoder's summation
-    range).  int32 input is converted to f32 and multiplied by the f32
-    ``window``; each lag product is f32 and the sums are f64.  Returns
+    range).  int32 input is converted to the window's float type (f32
+    without a window) and multiplied by the ``window``; each lag product
+    is in that type (f32 or f64) and the sums are f64.  Returns
     ``[..., max_lag+1]`` f64.
     """
     n = x.shape[-1]
-    w = x.float() if x.dtype == torch.int32 else x
+    w = x
+    if x.dtype == torch.int32:
+        w = x.to(torch.float32 if window is None else window.dtype)
     if window is not None:
         w = w * window.to(w.dtype)
     cols = [(w[..., : n - lag - 1] * w[..., lag: n - 1]).sum(
@@ -224,6 +228,72 @@ def predict_residual(x: torch.Tensor, taps: torch.Tensor,
     for j in range(taps.shape[-1]):
         acc = acc + taps[..., j, None].to(acc_dtype) * shift_right_k(xa, j + 1)
     return xa - (acc >> shift[..., None].to(acc_dtype))
+
+
+def lpc_residuals_all(x: torch.Tensor, qcoefs: torch.Tensor,
+                      shifts: torch.Tensor,
+                      acc_dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Exact residuals for every LPC order.
+
+    Args:
+      x: ``[..., n]`` int samples; qcoefs ``[..., P, T]`` (row ``o-1`` is
+        the order-``o`` predictor, zero past its order); shifts
+        ``[..., P]``.
+      acc_dtype: see :func:`predict_residual` (same static bound).
+    Returns:
+      ``[..., P, n]`` acc_dtype; row ``o-1`` valid at positions ``i >= o``.
+    """
+    p = qcoefs.shape[-2]
+    xa = x.to(acc_dtype)
+    shifted = [shift_right_k(xa, j + 1) for j in range(p)]
+    rows = []
+    for o in range(1, p + 1):
+        acc = torch.zeros_like(xa)
+        for j in range(o):
+            acc = acc + qcoefs[..., o - 1, j, None].to(acc_dtype) * shifted[j]
+        rows.append(xa - (acc >> shifts[..., o - 1, None].to(acc_dtype)))
+    return torch.stack(rows, dim=-2)
+
+
+class WindowCandidates(NamedTuple):
+    """One window's LPC candidates per (frame, channel, order), or the
+    best of several windows.  ``rank`` orders the windows (the zigzag
+    sum, :data:`RANK_INVALID` where the predictor is invalid); ``maxabs``
+    is None where the order search does not compute it."""
+    rank: torch.Tensor          # [..., P] int64
+    lzz: torch.Tensor           # [..., P] int64 zigzag sum (or estimate)
+    maxabs: torch.Tensor | None  # [..., P] int32 max |residual|
+    qcoefs: torch.Tensor        # [..., P, T] int32
+    qshifts: torch.Tensor       # [..., P] int32
+    valid: torch.Tensor         # [..., P] bool
+
+
+#: Rank of an invalid predictor: after every valid one.
+RANK_INVALID = 1 << 50
+
+
+def window_candidates(lzz: torch.Tensor, maxabs: torch.Tensor | None,
+                      qcoefs: torch.Tensor, qshifts: torch.Tensor,
+                      valid: torch.Tensor) -> WindowCandidates:
+    """One window's candidates, ranked by ``lzz`` (invalid ones last)."""
+    return WindowCandidates(torch.where(valid, lzz, RANK_INVALID), lzz,
+                            maxabs, qcoefs, qshifts, valid)
+
+
+def merge_windows(best: WindowCandidates | None,
+                  cand: WindowCandidates) -> WindowCandidates:
+    """Keep, per (frame, channel, order), the window of smaller rank;
+    the earlier window (``best``) keeps a tie."""
+    if best is None:
+        return cand
+    bet = cand.rank < best.rank
+
+    def pick(new, old):
+        if new is None:
+            return None
+        grown = bet.reshape(bet.shape + (1,) * (new.dim() - bet.dim()))
+        return torch.where(grown, new, old)
+    return WindowCandidates(*(pick(c, b) for c, b in zip(cand, best)))
 
 
 def mac_int32_ok(eff_bps: int, sum_taps_max: int) -> bool:

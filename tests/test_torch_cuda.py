@@ -1,24 +1,28 @@
-"""The four CUDA kernels against their plain versions, on the card.
+"""The five CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA card and skip without one (the CUDA
 kernels have no CPU mode).  Run them on the card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
-Shapes here are the edges the headline batch does not reach: rows that
-end mid-tile, silence, the widest lags, every predictor order, and zigzag
-rows past every Rice code cap.  Integers must match exactly; the
+Shapes here are the edges the main paths do not reach: rows that end
+mid-tile, silence, the widest lags, every predictor order, zigzag rows
+past every Rice code cap, and the general slot layout at finest
+partitions of 36, 18 and 16 samples.  Integers must match exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
-another order) or n·eps64·autoc[0] near zero.
+another order; 1e-12 for f64 products) or that factor of autoc[0] near
+zero.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from flacx_torch.encoder import EncoderConfig
 from flacx_torch.format import FIXED_PREDICTOR_TAPS
 from flacx_torch.kernels import analysis as k_an
 from flacx_torch.kernels import frame_pack as k_fp
+from flacx_torch.kernels import lpc_allorder as k_la
 from flacx_torch.kernels import lpc_residual as k_lr
 from flacx_torch.kernels import rice_stats as k_rs
 from flacx_torch.ops import emit, rice
@@ -61,6 +65,39 @@ def test_analysis_kernel(dev, n, max_lag):
     assert bool(((autoc - ref_a).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("n,max_lag", [(4608, 12), (4608, 32), (1000, 12),
+                                       (1000, 32), (64, 12), (64, 32)])
+def test_analysis_kernel_f64(dev, n, max_lag):
+    x = torch.from_numpy(rows(5, 9, n)).to(dev)
+    w = torch.rand(n, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(n)).to(dev)
+    autoc, fsums = k_an.analysis(x, w, max_lag)
+    ref_a, ref_f = k_an.analysis_plain(x, w, max_lag)
+    later, none = k_an.analysis(x, w, max_lag, fixed_sums=False)
+    torch.cuda.synchronize()
+    assert torch.equal(fsums, ref_f) and none is None
+    tol = 1e-12 * (ref_a.abs() + ref_a[..., :1].abs())
+    assert bool(((autoc - ref_a).abs() <= tol).all())
+    assert torch.equal(later, autoc)
+
+
+@pytest.mark.parametrize("p", [1, 12, 32])
+def test_lpc_allorder_kernel(dev, p):
+    """N = 777 (no tile multiple), a silent and a full-scale alternating
+    17-bit row, every order 1..P at precision 5."""
+    n, r = 777, 10
+    x = torch.from_numpy(rows(6, r, n)).to(dev)
+    rng = np.random.default_rng(p)
+    qcoefs = rng.integers(-16, 16, (r, p, p)).astype(np.int32)
+    qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
+    shifts = rng.integers(0, 16, (r, p)).astype(np.int32)
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (qcoefs, shifts)]
+    got = k_la.lpc_allorder(*args, 17, p << 4)
+    ref = k_la.lpc_allorder_plain(*args, 17, p << 4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 @pytest.mark.parametrize("n,ntaps", [(4608, 12), (777, 32), (40, 4)])
 def test_lpc_residual_kernel(dev, n, ntaps):
     r = 12
@@ -83,13 +120,16 @@ def test_lpc_residual_kernel(dev, n, ntaps):
     assert torch.equal(zz, ref_zz)
 
 
-@pytest.mark.parametrize("n,porders,kmax", [
-    (4608, (0, 1, 2, 3, 4, 5), 23), (4096, (0, 2, 7), 30), (1152, (3,), 0)])
-def test_rice_stats_kernel(dev, n, porders, kmax):
+@pytest.mark.parametrize("n,porders,kmax,c", [
+    (4608, (0, 1, 2, 3, 4, 5), 23, 2), (4096, (0, 2, 7), 30, 2),
+    (1152, (3,), 0, 2), (1152, (0, 1, 2, 3, 4, 5), 23, 4)])
+def test_rice_stats_kernel(dev, n, porders, kmax, c):
+    """The last case is the best path at block 1152: the four virtual
+    channels, finest partitions of 36 samples."""
     rng = np.random.default_rng(n)
-    scale = 2.0 ** rng.integers(0, 30, size=(6, 2, 1))
-    zz = np.minimum(rng.exponential(size=(6, 2, n)) * scale, 2 ** 30 - 1)
-    order = rng.integers(0, 13, size=(6, 2)).astype(np.int32)
+    scale = 2.0 ** rng.integers(0, 30, size=(6, c, 1))
+    zz = np.minimum(rng.exponential(size=(6, c, n)) * scale, 2 ** 30 - 1)
+    order = rng.integers(0, 13, size=(6, c)).astype(np.int32)
     zz = np.where(np.arange(n) < order[..., None], 0, zz).astype(np.int32)
     zt, ot = torch.from_numpy(zz).to(dev), torch.from_numpy(order).to(dev)
     got = k_rs.rice_stats(zt, ot, porders, kmax)
@@ -101,7 +141,21 @@ def test_rice_stats_kernel(dev, n, porders, kmax):
 
 def test_frame_pack_kernel(dev):
     """Every subframe kind, escapes, and multi-byte frame numbers."""
-    b, n, psize_min, prec = 6, 4608, 144, 5
+    frame_pack_case(dev, 4608, (0, 1, 2, 3, 4, 5), wasted=False)
+
+
+@pytest.mark.parametrize("n,porders", [(1152, (0, 1, 2, 3, 4, 5)),
+                                       (4608, (0, 2, 5, 8)),
+                                       (4096, (0, 3, 8))])
+def test_frame_pack_kernel_general_layout(dev, n, porders):
+    """Finest partitions of 36, 18 and 16 samples, wasted bits."""
+    frame_pack_case(dev, n, porders, wasted=True)
+
+
+def frame_pack_case(dev, n, porders, wasted):
+    b, prec = 6, 5
+    psize_min = n >> max(porders)
+    assert emit.blocked_layout_ok(n, psize_min) != wasted
     rng = np.random.default_rng(3)
     x = rows(4, b * 2, n, bits=16).reshape(b, 2, n)
     kind = rng.integers(0, 4, (b, 2)).astype(np.int32)
@@ -115,26 +169,31 @@ def test_frame_pack_kernel(dev):
     taps = np.zeros((b, 2, 12), np.int32)
     taps[..., :4] = FIXED_PREDICTOR_TAPS[order]
     shift = np.zeros((b, 2), np.int32)
-    bps = np.full((b, 2), 16, np.int32)
+    w = (rng.integers(0, 4, (b, 2)) * wasted).astype(np.int32)
+    w[0, 0] = 0
+    x = x >> w[..., None]
+    bps = 16 - w
     t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
         x=x, kind=kind, order=order, taps=taps, shift=shift,
-        bps=bps).items()}
+        bps=bps, w=w).items()}
     zz = k_lr.lpc_residual_zz_plain(t["x"], t["taps"], t["shift"],
                                     t["order"], 17, 15)
-    porders = (0, 1, 2, 3, 4, 5)
     plan = rice.exact_plan(zz, t["order"], porders, porders, 23)
     hdr = frame_header_symbols(
         torch.tensor([0, 5, 127, 128, 70000, 1 << 33], device=dev),
         torch.tensor([1, 8, 9, 10, 1, 1], dtype=torch.int32, device=dev), n)
     sh_v, sh_l = emit.subframe_header_symbols(
         t["kind"], t["order"], t["bps"], t["x"], t["taps"], t["shift"], prec,
-        plan)
+        plan, t["w"])
     pv, pl = emit.partition_param_symbols(t["kind"], plan)
     kesc = (plan.k_seg.int() | (plan.esc_seg.int() << 7)).contiguous()
     args = (hdr.values, hdr.lengths, sh_v, sh_l, pv, pl, zz, t["x"], kesc,
-            t["kind"], t["order"], t["bps"], psize_min, 19712)
+            t["kind"], t["order"], t["bps"], psize_min,
+            EncoderConfig(block_size=n).max_frame_bytes)
+    before = k_fp.frame_pack.launches
     out, length = k_fp.frame_pack(*args)
     ref, ref_len = k_fp.frame_pack_plain(*args)
     torch.cuda.synchronize()
+    assert k_fp.frame_pack.launches == before + 1
     assert bool(plan.esc_seg.any())
     assert torch.equal(length, ref_len) and torch.equal(out, ref)

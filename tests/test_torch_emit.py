@@ -195,6 +195,46 @@ def test_frame_pack_plain_matches_flacx_chain(case):
         assert crc.crc16(frame[:-2]) == int.from_bytes(frame[-2:], "big")
 
 
+def kernel_slot_walk(n: int, psize_min: int) -> tuple:
+    """The ``frame_pack`` kernel's walk of one channel's param and sample
+    slots (``csrc/frame_pack.cu`` ``symbol``): per slot, whether it is a
+    param slot, and its param or sample index."""
+    extra, mult = emit.general_layout_tables(n, psize_min)
+    u = np.arange(n + n // psize_min)
+    seg, r = u // (psize_min + 1), u % (psize_min + 1)
+    is_param = np.concatenate([np.ones(len(extra), bool), r == 0])
+    index = np.concatenate([extra, np.where(r == 0, np.asarray(mult)[seg],
+                                            seg * psize_min + r - 1)])
+    return torch.from_numpy(is_param), torch.from_numpy(index)
+
+
+@pytest.mark.parametrize("porders", [(0, 1, 2, 3, 4, 5), (0, 6)])
+def test_kernel_slot_walk_writes_the_blocked_stream(case, porders):
+    """Finest partitions of 144 and 72 samples: the general layout's slot
+    order, which the kernel walks at every partition size, gives the
+    blocked layout's symbol stream."""
+    psize_min = N >> max(porders)
+    assert emit.blocked_layout_ok(N, psize_min)
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    plan = rice.exact_plan(t["zz"], t["order"], porders, porders, KMAX)
+    pv, pl = emit.partition_param_symbols(t["kind"], plan)
+    sv, sl = emit.sample_symbols_from(t["kind"], t["order"], t["bps"],
+                                      t["x"], t["zz"], plan.k_sample,
+                                      plan.esc_sample)
+    blocked_v = torch.cat(emit.interleave_slots(pv, sv, psize_min), -1)
+    blocked_l = torch.cat(emit.interleave_slots(pl, sl, psize_min), -1)
+    is_param, index = kernel_slot_walk(N, psize_min)
+    pidx = torch.where(is_param, index, 0)
+    walk_v = torch.where(is_param, pv[..., pidx], sv[..., index])
+    walk_l = torch.where(is_param, pl[..., pidx], sl[..., index])
+    assert walk_l.shape[-1] == pl.shape[-1] + N
+    for f in range(len(LAYOUT)):
+        for c in range(2):
+            live_b, live_w = blocked_l[f, c] > 0, walk_l[f, c] > 0
+            assert torch.equal(blocked_l[f, c][live_b], walk_l[f, c][live_w])
+            assert torch.equal(blocked_v[f, c][live_b], walk_v[f, c][live_w])
+
+
 def test_frame_pack_wrapper_is_plain_on_cpu(case):
     """The wrapper takes its plain version for CPU tensors only."""
     plan, _ = plans(case, (0, 1, 2, 3, 4, 5))

@@ -130,13 +130,16 @@ def test_batch_encoder_streams_in_small_batches(batch):
 
 
 @pytest.mark.parametrize("changes,later", [
-    ({"order_search": "exact"}, "exact-search"),
-    ({"windows": ("tukey(0.5)", "hann")}, "multi-window"),
-    ({"wasted_bits": True}, "wasted-bits"),
+    ({"conformance": True, "order_search": "exact"}, "conformance"),
     ({"conformance": True}, "conformance"),
     ({"bps": 24}, "hi-res"),
-    ({"partition_orders": tuple(range(9))}, "segmented layout"),
+    ({"bps": 24, "windows": ("tukey(0.5)", "hann")}, "bps 24"),
+    ({"partition_orders": tuple(range(10))}, "shared memory"),
+    ({"partition_orders": tuple(range(10)), "order_search": "exact",
+      "wasted_bits": True}, "rice_stats"),
     ({"max_lpc_order": 32, "qlp_precision": 15}, "int32 MAC"),
+    ({"max_lpc_order": 32, "qlp_precision": 15, "order_search": "exact"},
+     "int32 MAC"),
 ])
 def test_unsupported_configs_raise(changes, later):
     cfg = EncoderConfig(block_size=N, **changes)
@@ -144,6 +147,22 @@ def test_unsupported_configs_raise(changes, later):
         BatchEncoder(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=later):
         port_encode(cfg, np.zeros((1, cfg.channels, N), np.int32), 0)
+
+
+def test_rice_shared_memory_refusal_is_the_same_on_every_device():
+    """A partition count past ``rice_stats``' shared memory is refused by
+    the configuration check, before any device is touched, and the
+    kernel wrapper's own limit is the same one."""
+    from flacx_torch.kernels import rice_stats as k_rs
+    ok = EncoderConfig(block_size=N, partition_orders=tuple(range(9)))
+    too_many = EncoderConfig(block_size=N, partition_orders=tuple(range(10)))
+    assert k_rs.smem_bytes(max(ok.porders), ok.kmax) <= k_rs.SMEM_LIMIT
+    assert (k_rs.smem_bytes(max(too_many.porders), too_many.kmax)
+            > k_rs.SMEM_LIMIT)
+    BatchEncoder(ok, device="cpu")
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            BatchEncoder(too_many, device=device)
 
 
 def test_batch_encoder_defaults_to_the_card():

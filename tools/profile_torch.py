@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of flacx_torch's headline encode goes, on one card.
+"""Where the time of a flacx_torch encode goes, on one card.
 
-    python3 tools/profile_torch.py [--batches 3] [--out profile_out]
+    python3 tools/profile_torch.py [--config headline|best] [--block N]
+                                   [--batches 3] [--out profile_out]
 
-Encodes the headline batch (1024 frames of block 4608, LPC order 12,
-16-bit stereo, the two-tone test signal from seed 0xF1AC) with
-``BatchEncoder.encode_batch_device`` under ``torch.profiler`` and prints:
+Encodes one 1024-frame batch (16-bit stereo, the two-tone test signal
+from seed 0xF1AC) with ``BatchEncoder.encode_batch_device`` under
+``torch.profiler``.  ``--config headline`` (the default) is block 4608,
+LPC order 12, estimate order search; ``--config best`` is the
+best-compression encode (``encode --best``: exact order search over the
+windows Tukey(0.5), Hann and flattop, f64 analysis) at ``--block`` 4608,
+2304 or 1152.  Prints:
 the wall time per batch, the device time per batch (sum of kernel times)
 and the device's idle share of the window, the kernel time and host time
 of each pipeline stage (profiler ranges around the stage functions), and
@@ -31,6 +36,7 @@ STAGES = {
     "analysis kernel": ("flacx_torch.encoder", "analysis"),
     "levinson": ("flacx_torch.encoder", "levinson_all_orders"),
     "quantize": ("flacx_torch.encoder", "quantize_all_orders"),
+    "lpc_allorder kernel": ("flacx_torch.encoder", "lpc_allorder"),
     "lpc_residual stats kernel": ("flacx_torch.encoder",
                                   "lpc_residual_stats"),
     "lpc_residual zz kernel": ("flacx_torch.encoder", "lpc_residual_zz"),
@@ -75,6 +81,10 @@ def self_device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("headline", "best"),
+                    default="headline")
+    ap.add_argument("--block", type=int, default=4608,
+                    help="block size of --config best")
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
@@ -83,15 +93,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
         return 1
-    from chip_smoke import B, N, SEED, card_line, synth_pcm
+    from chip_smoke import B, SEED, best_config, blocks_of, card_line, \
+        synth_pcm
     from flacx_torch.encoder import BatchEncoder, EncoderConfig
 
     annotate_stages(torch)
-    enc = BatchEncoder(EncoderConfig(block_size=N, max_lpc_order=12),
-                       batch_frames=B)
-    pcm = synth_pcm(np.random.default_rng(SEED), N * B)
-    planar = torch.from_numpy(np.ascontiguousarray(
-        pcm.reshape(B, N, 2).transpose(0, 2, 1).astype(np.int16))).cuda()
+    n = args.block if args.config == "best" else 4608
+    cfg = (best_config(n) if args.config == "best"
+           else EncoderConfig(block_size=n, max_lpc_order=12))
+    enc = BatchEncoder(cfg, batch_frames=B)
+    pcm = synth_pcm(np.random.default_rng(SEED), n * B)
+    planar = torch.from_numpy(blocks_of(pcm, n)).cuda()
     for _ in range(2):                                   # warm-up, build
         enc.encode_batch_device(planar, 0)
     torch.cuda.synchronize()
@@ -111,7 +123,8 @@ def main() -> int:
     dev_ms = sum(self_device_us(e) for e in kernels) / 1e3 / args.batches
     n_kernels = sum(e.count for e in kernels) / args.batches
 
-    print(f"card {card_line()}; torch {torch.__version__}")
+    print(f"card {card_line()}; torch {torch.__version__}; config "
+          f"{args.config}, block {n}, {B} frames per batch")
     print(f"wall {wall_ms:.3f} ms per batch; device busy {dev_ms:.3f} ms "
           f"per batch ({n_kernels:.0f} kernel launches); device idle share "
           f"{max(0.0, 1 - dev_ms / wall_ms):.4f}")
