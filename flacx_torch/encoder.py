@@ -17,9 +17,10 @@ yielding complete, CRC'd FLAC frames as byte rows.  On the CPU every
 kernel is replaced by its plain PyTorch version.
 
 Both order searches, f32 and f64 analysis, any number of windows and
-wasted bits are covered, under the single-int32 MAC and the kernels'
-shared-memory limits.  Other configurations raise
-``NotImplementedError`` naming the slice that will bring them.
+wasted bits are covered up to 24-bit samples, every partition order and
+frame size; the exact order search only under the single-int32 MAC.
+Other configurations raise ``NotImplementedError`` naming the slice that
+will bring them.
 """
 
 from __future__ import annotations
@@ -35,13 +36,10 @@ from flacx_torch.device import resolve_device
 from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
                                 Channels)
 from flacx_torch.kernels.analysis import analysis
-from flacx_torch.kernels.frame_pack import SMEM_LIMIT as FRAME_SMEM_LIMIT
 from flacx_torch.kernels.lpc_allorder import lpc_allorder
 from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
                                               lpc_residual_zz)
-from flacx_torch.kernels.rice_stats import SMEM_LIMIT as RICE_SMEM_LIMIT
 from flacx_torch.kernels.rice_stats import rice_stats
-from flacx_torch.kernels.rice_stats import smem_bytes as rice_smem_bytes
 from flacx_torch.ops import emit, rice
 from flacx_torch.ops.framepack import pack_frames
 from flacx_torch.ops.headers import frame_header_symbols
@@ -182,17 +180,13 @@ def check_supported(cfg: EncoderConfig) -> None:
     later = []
     if cfg.conformance:
         later.append("conformance=True (conformance slice)")
-    if cfg.bps > 17:
-        later.append(f"bps {cfg.bps} > 17 (hi-res slice)")
-    elif not mac_int32_ok(cfg.eff_bps, max(cfg.sum_taps_max, 15)):
-        later.append("a width past the int32 MAC bound (hi-res slice)")
-    max_po = max(cfg.porders)
-    if rice_smem_bytes(max_po, cfg.kmax) > RICE_SMEM_LIMIT:
-        later.append(f"2^{max_po} partitions at kmax {cfg.kmax}, past "
-                     "rice_stats' shared memory (hi-res slice)")
-    if cfg.max_frame_bytes > FRAME_SMEM_LIMIT:
-        later.append(f"frames of {cfg.max_frame_bytes} bytes, past "
-                     "frame_pack's shared memory (hi-res slice)")
+    if cfg.bps > 24:
+        later.append(f"bps {cfg.bps} > 24, whose residuals need an int64 "
+                     "working type (bps 25..32 slice)")
+    elif (cfg.order_search == "exact" and cfg.max_lpc_order
+          and not mac_int32_ok(cfg.eff_bps, cfg.sum_taps_max)):
+        later.append("order_search='exact' past the int32 MAC bound "
+                     "(lpc_allorder's wide MAC slice)")
     if later:
         raise NotImplementedError("flacx_torch does not encode yet: "
                                   + "; ".join(later))

@@ -5,7 +5,11 @@
 // Replaces the TPU chain flacx/kernels/emit_tile.py::emit_sample_tiles ->
 // bitpack_tile.py::merge_tiles_t -> bitpack_tile.py::merge_strings_t ->
 // crc_tile.py::crc16_packed_t (the caller there fixes the CRC's zero tail)
-// of the blocked layout, and the classic symbol path's
+// of the blocked layout; its segmented-layout emit
+// emit_tile.py::emit_sample_tiles_seg (psize_min < 40, down to the 1-sample
+// partitions of the hi-res path) and the leveled merge
+// bitpack_tile.py::merge_strings_t_leveled that flacx takes for string
+// stacks past 80 MiB; and the classic symbol path's
 // bitpack_tile.py::merge_tiles -> bitpack_tile.py::merge_strings (with the
 // XLA CRC-16 fold after it) below 40-sample partitions.
 //
@@ -28,19 +32,30 @@
 // the output row written once: at the headline 1024 frames x 2 channels x
 // 4608 samples that is 75.5 MB in + 20.2 MB out, 28.6 us at 3.35 TB/s
 // (the same samples at block 1152: 4096 frames x 2 x 1152).
-// The per-symbol work (a scan step, a shift, one or two shared atomics) is
-// below that.
+// The per-symbol work (a scan step, a shift, one or two atomics) is below
+// that.
 //
-// Design: one block per frame.  The frame's packed words live in shared
-// memory (max_frame_bytes of them, pre-zeroed).  The block walks the
-// frame's symbol slots one tile of THREADS at a time: each thread makes its
-// slot's (value, length), a block-wide exclusive scan of the lengths (warp
-// shuffles, then the warp totals) gives every symbol's bit offset, and the
-// symbol is ORed into at most two words with shared-memory atomics.  The
-// CRC-16 is then parallel: each thread folds a contiguous run of bytes with
-// a 256-entry table (and the power x^(8*len) mod P of its run), and a
-// log-depth tree joins the runs by crc(A|B) = crc(A) * x^(8|B|) + crc(B).
-// Finally the block writes its output row once, coalesced.
+// Design: one block per frame.  The block walks the frame's symbol slots
+// one tile of THREADS at a time: each thread makes its slot's (value,
+// length), a block-wide exclusive scan of the lengths (warp shuffles, then
+// the warp totals) gives every symbol's bit offset, and the symbol is ORed
+// into at most two MSB-first words with atomics.  The CRC-16 is then
+// parallel: each thread folds a contiguous run of whole words, byte by
+// byte, with a 256-entry table (and the power x^(8*len) mod P of its run),
+// and a log-depth tree joins the runs by crc(A|B) = crc(A) * x^(8|B|) +
+// crc(B).  Two routes, picked by the wrapper from max_frame_bytes:
+//   smem:   the words live in shared memory (pre-zeroed, up to 200 KB: a
+//           stereo hi-res frame is at most 102,656 bytes), and the block
+//           writes its output row once at the end, coalesced;
+//   global: frames past that (a 5.1 hi-res frame is up to 295,168 bytes,
+//           past the 232,448 bytes a Hopper block may have; flacx levels
+//           its merge there).  The words are ORed straight into the
+//           frame's output row in device memory, which the wrapper
+//           zero-fills; the CRC folds from that row, read past L1
+//           (__ldcg) from L2, where the batch sits (64 frames x 295 KB =
+//           19 MB of 50 MB); then each word is byte-swapped in place into
+//           stream order and the CRC's two bytes are stored after the
+//           stream.
 
 #include "common.cuh"
 
@@ -157,8 +172,14 @@ __device__ __forceinline__ uint32_t gf_mulmod16(uint32_t a, uint32_t b) {
   return p;
 }
 
+template <bool GLOBAL>
+__device__ __forceinline__ uint32_t load_word(const uint32_t* words, int i) {
+  return GLOBAL ? __ldcg(words + i) : words[i];
+}
+
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
-  extern __shared__ uint32_t words[];  // [mfb / 4]
+  extern __shared__ uint32_t smem_words[];  // smem route: [mfb / 4]
   __shared__ uint32_t tab[THREADS];
   __shared__ uint32_t wsum[WARPS];
   __shared__ uint32_t crc_s[THREADS], pow_s[THREADS];
@@ -166,7 +187,10 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cap = a.mfb / 4;
-  for (int i = tid; i < cap; i += THREADS) words[i] = 0;
+  uint8_t* row = a.out + (size_t)b * a.mfb;
+  uint32_t* words = GLOBAL ? reinterpret_cast<uint32_t*>(row) : smem_words;
+  if (!GLOBAL)
+    for (int i = tid; i < cap; i += THREADS) words[i] = 0;
   {
     uint32_t e = (uint32_t)tid << 8;
     for (int j = 0; j < 8; ++j) e = (e & 0x8000u) ? (e << 1) ^ POLY16 : e << 1;
@@ -201,16 +225,20 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
     __syncthreads();  // wsum is rewritten by the next tile
   }
 
-  // ---- CRC-16 over the first nbytes bytes
+  // ---- CRC-16 over the first nbytes bytes, each run whole words
   const int nbytes = (int)((carry + 7u) >> 3);
   const int readable = min(nbytes, cap * 4);
-  const int run = (readable + THREADS - 1) / THREADS;
+  const int run = (((readable + THREADS - 1) / THREADS) + 3) & ~3;
   const int lo = min(tid * run, readable), hi = min(lo + run, readable);
   uint32_t crc = 0, pw = 1;  // crc of the run, x^(8 * run length) mod P
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t byte = (words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu;
-    crc = tab[((crc >> 8) ^ byte) & 0xffu] ^ ((crc << 8) & 0xffffu);
-    pw = tab[(pw >> 8) & 0xffu] ^ ((pw << 8) & 0xffffu);
+  for (int w4 = lo; w4 < hi; w4 += 4) {
+    const uint32_t w = load_word<GLOBAL>(words, w4 >> 2);
+    const int nb = min(4, hi - w4);
+    for (int j = 0; j < nb; ++j) {
+      const uint32_t byte = (w >> (24 - 8 * j)) & 0xffu;
+      crc = tab[((crc >> 8) ^ byte) & 0xffu] ^ ((crc << 8) & 0xffffu);
+      pw = tab[(pw >> 8) & 0xffu] ^ ((pw << 8) & 0xffffu);
+    }
   }
   crc_s[tid] = crc;
   pow_s[tid] = pw;
@@ -228,16 +256,29 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
   const uint32_t frame_crc = crc_s[0];
 
   // ---- the output row: packed bytes, CRC-16, zeros
-  uint8_t* row = a.out + (size_t)b * a.mfb;
-  for (int i = tid; i < a.mfb; i += THREADS) {
-    uint32_t byte = 0;
-    if (i < readable)
-      byte = (words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu;
-    else if (i == nbytes)
-      byte = frame_crc >> 8;
-    else if (i == nbytes + 1)
-      byte = frame_crc & 0xffu;
-    row[i] = (uint8_t)byte;
+  if (GLOBAL) {
+    // the row holds the stream's words (zero past it): put each in byte
+    // order, then store the CRC-16 after the stream
+    for (int i = tid; i < (readable + 3) >> 2; i += THREADS) {
+      const uint32_t w = __ldcg(words + i);
+      if (w) words[i] = __byte_perm(w, 0, 0x0123);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      if (nbytes < a.mfb) row[nbytes] = (uint8_t)(frame_crc >> 8);
+      if (nbytes + 1 < a.mfb) row[nbytes + 1] = (uint8_t)(frame_crc & 0xffu);
+    }
+  } else {
+    for (int i = tid; i < a.mfb; i += THREADS) {
+      uint32_t byte = 0;
+      if (i < readable)
+        byte = (words[i >> 2] >> (24 - 8 * (i & 3))) & 0xffu;
+      else if (i == nbytes)
+        byte = frame_crc >> 8;
+      else if (i == nbytes + 1)
+        byte = frame_crc & 0xffu;
+      row[i] = (uint8_t)byte;
+    }
   }
   if (tid == 0) a.length[b] = nbytes + 2;
 }
@@ -246,7 +287,10 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel(Args a) {
 
 // Symbol arrays as in Args; rows = B frames, c channels, h frame-header
 // slots, sh subframe-header slots, p = n_extra + n / psize param slots,
-// mfb = max_frame_bytes (a multiple of 4).  Returns the CUDA error code.
+// mfb = max_frame_bytes (a multiple of 4).  global_route != 0 packs into
+// `out` in device memory, which must arrive zero-filled; else the frame's
+// words live in shared memory (mfb <= 200 KB).  Returns the CUDA error
+// code.
 FLACX_API int flacx_frame_pack(const long long* hdr_v, const int32_t* hdr_l,
                                const long long* sh_v, const int32_t* sh_l,
                                const long long* pv, const int32_t* pl,
@@ -255,18 +299,23 @@ FLACX_API int flacx_frame_pack(const long long* hdr_v, const int32_t* hdr_l,
                                const int32_t* extra, const int32_t* mult,
                                uint8_t* out, int32_t* length, int rows, int c,
                                int h, int sh, int p, int n, int psize, int mfb,
-                               int n_extra, cudaStream_t stream) {
-  const int smem = mfb;  // mfb / 4 words
+                               int n_extra, int global_route,
+                               cudaStream_t stream) {
   if (rows <= 0 || c < 1 || h < 0 || sh < 0 || psize < 1 || n % psize != 0 ||
       n_extra < 0 || p != n_extra + n / psize || mult == nullptr ||
       (n_extra > 0 && extra == nullptr) || mfb <= 0 || mfb % 4 != 0 ||
-      smem > 200 * 1024)
+      (!global_route && mfb > 200 * 1024))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      frame_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   Args a{hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
          out, length, c, h, sh, p, n, psize, mfb, n_extra};
-  frame_pack_kernel<<<rows, THREADS, smem, stream>>>(a);
+  if (global_route) {
+    frame_pack_kernel<true><<<rows, THREADS, 0, stream>>>(a);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        frame_pack_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mfb);
+    if (err != cudaSuccess) return (int)err;
+    frame_pack_kernel<false><<<rows, THREADS, mfb, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }

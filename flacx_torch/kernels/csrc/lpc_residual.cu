@@ -1,23 +1,40 @@
 // lpc_residual: the integer LPC residual
 //   res[i] = x[i] - ((sum_j taps[j] * x[i-1-j]) >> shift),  res[i < order] = 0
 // of every row, in one of two output modes:
-//   stats: sum zigzag(res) (int64) and max |res| (int32); res is never
-//          written (the estimate-mode order search's exact statistics);
-//   zz:    zigzag(res) written out as int32 (the chosen predictor's
-//          residual, ready for the Rice search and the emitter).
+//   stats: sum zigzag(res) (int64) and max |res| (int32, clamped to
+//          2^31 - 1); res is never written (the estimate-mode order
+//          search's exact statistics);
+//   zz:    zigzag((int32) res) written out as int32 (the chosen
+//          predictor's residual, ready for the Rice search and the
+//          emitter).
 //
 // Replaces the TPU kernels flacx/kernels/lpcres_tile.py::lpc_residual_stats
-// (stats mode) and ::zigzag_residual_tiles (zz mode).
+// (stats mode) and ::zigzag_residual_tiles (zz mode), including their
+// two-limb split MAC (lpcres_tile.py::_mac_rows, split=True).
 //
-// The MAC is int32: exact under the static bound
-// eff_bps + 1 + bitlen(sum |taps|) <= 31, which the Python wrapper checks
-// (the two-limb split MAC past that bound is not ported).  It is carried
-// out in unsigned arithmetic (wrap-defined); the shift is arithmetic.
+// Two MAC widths, chosen by the wrapper from the static bound:
+//   int32: exact under eff_bps + 1 + bitlen(sum |taps|) <= 31; carried out
+//          in unsigned arithmetic (wrap-defined), the shift arithmetic.
+//   wide:  an int64 accumulator, each product (long long)tap * x one
+//          IMAD.WIDE.  Exact for every row: |x| < 2^31, T <= 32 taps of
+//          precision <= 15 (|tap| <= 2^14) give |sum| < 2^50, so res, its
+//          zigzag and the stats sums are exact int64 values (the stats
+//          sum wraps in int64 only past 2^63, in the same modular
+//          arithmetic as the plain version).  This is stronger than the
+//          TPU's split MAC, which only flags the lanes it cannot hold, and
+//          equals the JAX package's int64 XLA route (flacx/ops/lpc.py:
+//          381-392).  zz narrows res to int32 before the zigzag, as the
+//          encoder's int32 working type does: exact on every lane it
+//          emits (a chosen LPC residual has max |res| < 2^30; a fixed one
+//          has sum |taps| <= 15, so |res| <= 2^(eff_bps+3)).
 //
-// Bound on the card: bytes.  stats reads 4 B/sample (75.5 MB at the
-// headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz reads and writes
-// 4 B/sample each (1024 x 2 x 4608: 75.5 MB, 22.5 us).  The MAC (12
-// multiply-adds per sample at order 12) is below that.
+// Bound on the card.  int32 MAC: bytes.  stats reads 4 B/sample (75.5 MB
+// at the headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz reads and
+// writes 4 B/sample each (1024 x 2 x 4608: 75.5 MB, 22.5 us); the 12
+// multiply-adds per sample at order 12 are below that.  Wide MAC:
+// operations.  At hi-res stats takes 32 IMAD.WIDE per sample over 128 x 4
+// x 16384 samples, 5.4e8 int32 multiply-adds' worth at 64 per clock per
+// SM (132 SMs, 1.98 GHz): 32 us, against 10 us for its 33.6 MB.
 //
 // Design: one block per row; the row streams through shared memory in
 // tiles with a 32-sample halo (zero before the row start, as the plain
@@ -31,8 +48,40 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE = 1024;
 constexpr int HALO = 32;
+constexpr long long INT32_MAX_LL = 2147483647LL;
 
-template <bool ZZ>
+// Sample c of the tile in the MAC width of the template: the residual
+// narrowed to int32, its zigzag as the stats sum adds it, and its |res|
+// as the stats max takes it (clamped to 2^31 - 1 in the wide MAC).
+template <bool WIDE>
+__device__ __forceinline__ void residual(const int32_t* xs, const int32_t* tp,
+                                         int c, int ntaps, int sh,
+                                         int32_t& narrow, long long& zz64,
+                                         int& absc) {
+  if (WIDE) {
+    long long acc = 0;
+#pragma unroll 4
+    for (int k = 0; k < ntaps; ++k)
+      acc += (long long)tp[k] * (long long)xs[c - 1 - k];
+    const long long res = (long long)xs[c] - (acc >> sh);
+    narrow = (int32_t)res;
+    zz64 = (long long)(((unsigned long long)res << 1) ^
+                       (unsigned long long)(res >> 63));
+    const long long a = res < 0 ? -res : res;
+    absc = (int)(a < INT32_MAX_LL ? a : INT32_MAX_LL);
+  } else {
+    uint32_t acc = 0;
+#pragma unroll 4
+    for (int k = 0; k < ntaps; ++k)
+      acc += (uint32_t)tp[k] * (uint32_t)xs[c - 1 - k];
+    const int32_t res = xs[c] - ((int32_t)acc >> sh);
+    narrow = res;
+    zz64 = flacx::zigzag32(res);  // signed, as the plain int32 sum takes it
+    absc = abs(res);
+  }
+}
+
+template <bool ZZ, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 lpc_residual_kernel(const int32_t* __restrict__ x,
                     const int32_t* __restrict__ taps,
@@ -65,19 +114,16 @@ lpc_residual_kernel(const int32_t* __restrict__ x,
     const int m = min(TILE, n - t0);
     for (int j = threadIdx.x; j < m; j += THREADS) {
       const int i = t0 + j;
-      const int c = HALO + j;
-      uint32_t acc = 0;
-#pragma unroll 4
-      for (int k = 0; k < ntaps; ++k)
-        acc += (uint32_t)tp[k] * (uint32_t)xs[c - 1 - k];
-      int32_t res = xs[c] - ((int32_t)acc >> sh);
-      if (i < ord) res = 0;
-      const int32_t z = flacx::zigzag32(res);
+      int32_t res;
+      long long z;
+      int a;
+      residual<WIDE>(xs, tp, HALO + j, ntaps, sh, res, z, a);
+      if (i < ord) res = 0, z = 0, a = 0;
       if (ZZ) {
-        zz[(size_t)row * n + i] = z;
+        zz[(size_t)row * n + i] = flacx::zigzag32(res);
       } else {
         s += z;
-        mx = max(mx, abs(res));
+        mx = max(mx, a);
       }
     }
     __syncthreads();
@@ -109,18 +155,32 @@ bool bad_args(int rows, int n, int ntaps) {
   return rows <= 0 || n < 1 || ntaps < 0 || ntaps > HALO;
 }
 
+template <bool ZZ>
+void launch(const int32_t* x, const int32_t* taps, const int32_t* shift,
+            const int32_t* order, int32_t* zz, long long* lzz,
+            int32_t* maxabs, int rows, int n, int ntaps, int wide,
+            cudaStream_t stream) {
+  if (wide)
+    lpc_residual_kernel<ZZ, true><<<rows, THREADS, 0, stream>>>(
+        x, taps, shift, order, zz, lzz, maxabs, n, ntaps);
+  else
+    lpc_residual_kernel<ZZ, false><<<rows, THREADS, 0, stream>>>(
+        x, taps, shift, order, zz, lzz, maxabs, n, ntaps);
+}
+
 }  // namespace
 
 // x int32 [rows, n], taps int32 [rows, ntaps], shift/order int32 [rows]
-// -> lzz int64 [rows], maxabs int32 [rows].
+// -> lzz int64 [rows], maxabs int32 [rows]; wide != 0 takes the int64 MAC.
 FLACX_API int flacx_lpc_residual_stats(const int32_t* x, const int32_t* taps,
                                        const int32_t* shift,
                                        const int32_t* order, long long* lzz,
                                        int32_t* maxabs, int rows, int n,
-                                       int ntaps, cudaStream_t stream) {
+                                       int ntaps, int wide,
+                                       cudaStream_t stream) {
   if (bad_args(rows, n, ntaps)) return (int)cudaErrorInvalidValue;
-  lpc_residual_kernel<false><<<rows, THREADS, 0, stream>>>(
-      x, taps, shift, order, nullptr, lzz, maxabs, n, ntaps);
+  launch<false>(x, taps, shift, order, nullptr, lzz, maxabs, rows, n, ntaps,
+                wide, stream);
   return (int)cudaGetLastError();
 }
 
@@ -128,9 +188,9 @@ FLACX_API int flacx_lpc_residual_stats(const int32_t* x, const int32_t* taps,
 FLACX_API int flacx_lpc_residual_zz(const int32_t* x, const int32_t* taps,
                                     const int32_t* shift, const int32_t* order,
                                     int32_t* zz, int rows, int n, int ntaps,
-                                    cudaStream_t stream) {
+                                    int wide, cudaStream_t stream) {
   if (bad_args(rows, n, ntaps)) return (int)cudaErrorInvalidValue;
-  lpc_residual_kernel<true><<<rows, THREADS, 0, stream>>>(
-      x, taps, shift, order, zz, nullptr, nullptr, n, ntaps);
+  launch<true>(x, taps, shift, order, zz, nullptr, nullptr, rows, n, ntaps,
+               wide, stream);
   return (int)cudaGetLastError();
 }

@@ -4,12 +4,16 @@ from the encoder's chosen subframes.
 
 Replaces the TPU chain ``flacx/kernels/emit_tile.py::emit_sample_tiles``
 → ``bitpack_tile.py::merge_tiles_t`` → ``bitpack_tile.py::merge_strings_t``
-→ ``crc_tile.py::crc16_packed_t`` of the blocked slot layout, and the
-classic path's ``bitpack_tile.py::merge_tiles`` → ``merge_strings`` below
-40-sample partitions; source, bound and design in ``csrc/frame_pack.cu``.
-The kernel walks the general layout's slots, which give the blocked
-layout's stream wherever that applies.  Its plain version is the classic
-symbol chain: ``emit`` symbols → merge-tree packer → CRC-16 fold.
+→ ``crc_tile.py::crc16_packed_t`` of the blocked slot layout, the
+segmented emit ``emit_tile.py::emit_sample_tiles_seg`` and the leveled
+merge ``bitpack_tile.py::merge_strings_t_leveled`` of the hi-res path, and
+the classic path's ``bitpack_tile.py::merge_tiles`` → ``merge_strings``
+below 40-sample partitions; source, bound and design in
+``csrc/frame_pack.cu``.  The kernel walks the general layout's slots,
+which give the blocked layout's stream wherever that applies, and packs a
+frame in shared memory or, past :data:`SMEM_LIMIT`, straight into its
+output row.  Its plain version is the classic symbol chain: ``emit``
+symbols → merge-tree packer → CRC-16 fold.
 """
 
 from __future__ import annotations
@@ -22,11 +26,17 @@ from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.bitpack import pack_symbols_words, words_to_bytes
 from flacx_torch.ops.crcfold import crc16_over_word_rows
 from flacx_torch.ops.emit import (general_layout_tables, interleave_slots,
-                                  param_slot_positions, sample_symbols_from)
+                                  sample_symbols_from)
 
 
-#: Largest frame the kernel packs: its words live in shared memory (bytes).
+#: Largest frame the kernel packs in shared memory (bytes).
 SMEM_LIMIT = 200 * 1024
+
+
+def route(max_frame_bytes: int) -> str:
+    """``"smem"`` for frames up to :data:`SMEM_LIMIT`, else ``"global"``
+    (the words packed in the output row in device memory)."""
+    return "smem" if max_frame_bytes <= SMEM_LIMIT else "global"
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,8 +115,9 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
     if n % psize_min:
         raise ValueError(f"frame_pack: finest partition {psize_min} does "
                          f"not divide block {n}")
-    p = len(param_slot_positions(n, psize_min))
     dev = x.device
+    extra, mult = _layout_tables(n, psize_min, dev)
+    p = extra.numel() + mult.numel()
     check(hdr_v, "hdr_v", torch.int64, (b, hdr_v.shape[-1]), dev)
     check(hdr_l, "hdr_l", torch.int32, hdr_v.shape, dev)
     check(sh_v, "sh_v", torch.int64, (b, c, sh_v.shape[-1]), dev)
@@ -119,21 +130,17 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
     if max_frame_bytes % 4:
         raise ValueError("frame_pack: max_frame_bytes must be a multiple "
                          "of 4")
-    if max_frame_bytes > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"frame_pack: frames of {max_frame_bytes} bytes exceed the "
-            "kernel's shared memory; larger frames belong to the hi-res "
-            "slice")
     meta = torch.stack([kind, order, bps], dim=-1).to(torch.int32) \
         .contiguous()
-    extra, mult = _layout_tables(n, psize_min, dev)
-    out = torch.empty((b, max_frame_bytes), dtype=torch.uint8, device=dev)
+    in_global = route(max_frame_bytes) == "global"
+    out = (torch.zeros if in_global else torch.empty)(
+        (b, max_frame_bytes), dtype=torch.uint8, device=dev)
     length = torch.empty(b, dtype=torch.int32, device=dev)
-    launch(bind("frame_pack", "flacx_frame_pack", 14, 9),
+    launch(bind("frame_pack", "flacx_frame_pack", 14, 10),
            [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
             out, length],
            [b, c, hdr_v.shape[-1], sh_v.shape[-1], p, n, psize_min,
-            max_frame_bytes, extra.numel()], "frame_pack")
+            max_frame_bytes, extra.numel(), int(in_global)], "frame_pack")
     frame_pack.launches += 1
     return out, length
 

@@ -14,11 +14,20 @@ import math
 import torch
 
 from flacx_torch.kernels.build import bind, check, launch
-from flacx_torch.kernels.lpc_residual import check_mac_bound
-from flacx_torch.ops.lpc import lpc_residuals_all
+from flacx_torch.ops.lpc import lpc_residuals_all, mac_int32_ok
 from flacx_torch.ops.rice import zigzag
 
 MAX_ORDER = 32
+
+
+def check_mac_bound(what: str, eff_bps: int, sum_taps_max: int) -> None:
+    """Refuse widths past the single-int32 MAC bound."""
+    if not mac_int32_ok(eff_bps, sum_taps_max):
+        raise NotImplementedError(
+            f"{what}: eff_bps {eff_bps} with tap magnitude sum "
+            f"{sum_taps_max} breaks the int32 MAC bound; the wide MAC of "
+            "lpc_allorder (the exact order search at 24-bit) belongs to a "
+            "later slice")
 
 
 def lpc_allorder_plain(x: torch.Tensor, qcoefs: torch.Tensor,

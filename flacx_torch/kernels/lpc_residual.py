@@ -4,8 +4,9 @@ zz mode (the zigzag residual written out).
 
 Replaces the TPU kernels ``flacx/kernels/lpcres_tile.py::
 lpc_residual_stats`` (stats mode) and ``::zigzag_residual_tiles`` (zz
-mode); source, bound and design in ``csrc/lpc_residual.cu``.  Only the
-single-int32 MAC is ported: both wrappers refuse widths past its bound.
+mode), their two-limb split MAC included; source, bound and design in
+``csrc/lpc_residual.cu``.  Each mode has two MAC widths: int32 under its
+static bound, and an int64 ("wide") MAC that is exact for every row.
 """
 
 from __future__ import annotations
@@ -21,13 +22,10 @@ from flacx_torch.ops.rice import zigzag
 MAX_TAPS = 32
 
 
-def check_mac_bound(what: str, eff_bps: int, sum_taps_max: int) -> None:
-    """Refuse widths past the single-int32 MAC bound."""
-    if not mac_int32_ok(eff_bps, sum_taps_max):
-        raise NotImplementedError(
-            f"{what}: eff_bps {eff_bps} with tap magnitude sum "
-            f"{sum_taps_max} breaks the int32 MAC bound; the two-limb MAC "
-            "belongs to the hi-res slice")
+def mac_width(eff_bps: int, sum_taps_max: int) -> str:
+    """The MAC the kernel runs for this static width bound: ``"int32"``
+    where the single-int32 MAC is exact, else ``"wide"`` (int64)."""
+    return "int32" if mac_int32_ok(eff_bps, sum_taps_max) else "wide"
 
 
 def lpc_residual_stats_plain(x: torch.Tensor, taps: torch.Tensor,
@@ -35,7 +33,6 @@ def lpc_residual_stats_plain(x: torch.Tensor, taps: torch.Tensor,
                              eff_bps: int, sum_taps_max: int,
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`lpc_residual_stats`."""
-    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
     _, lzz, maxabs = predict_residual_fused(x, taps, shift, order, eff_bps,
                                             sum_taps_max)
     return lzz, maxabs
@@ -45,14 +42,12 @@ def lpc_residual_zz_plain(x: torch.Tensor, taps: torch.Tensor,
                           shift: torch.Tensor, order: torch.Tensor,
                           eff_bps: int, sum_taps_max: int) -> torch.Tensor:
     """Plain version of :func:`lpc_residual_zz`."""
-    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
     res, _, _ = predict_residual_fused(x, taps, shift, order, eff_bps,
                                        sum_taps_max)
-    return zigzag(res)
+    return zigzag(res.to(torch.int32))
 
 
-def _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max):
-    check_mac_bound("lpc_residual", eff_bps, sum_taps_max)
+def _check_inputs(x, taps, shift, order):
     lead = x.shape[:-1]
     check(x, "x", torch.int32)
     check(taps, "taps", torch.int32, (*lead, taps.shape[-1]), x.device)
@@ -67,23 +62,25 @@ def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
                        shift: torch.Tensor, order: torch.Tensor,
                        eff_bps: int, sum_taps_max: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(Σ zigzag(res) int64, max |res| int32)`` per row, where
-    ``res[i] = x[i] - (Σ_j taps_j·x[i-1-j] >> shift)`` and ``res[i <
+    """``(Σ zigzag(res) int64, min(max |res|, 2^31 - 1) int32)`` per row,
+    where ``res[i] = x[i] - (Σ_j taps_j·x[i-1-j] >> shift)`` and ``res[i <
     order] = 0``.
 
     Args:
       x: int32 ``[..., n]``; taps int32 ``[..., T]`` (T ≤ 32, zero past
-        the order); shift and order int32 ``[...]``.
-      eff_bps, sum_taps_max: the static width bound the int32 MAC needs.
+        the order, precision ≤ 15); shift and order int32 ``[...]``.
+      eff_bps, sum_taps_max: the static width bound that picks the MAC
+        (:func:`mac_width`).
     """
     if x.device.type == "cpu":
         return lpc_residual_stats_plain(x, taps, shift, order, eff_bps,
                                         sum_taps_max)
-    rows, n, t = _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max)
+    rows, n, t = _check_inputs(x, taps, shift, order)
     lzz = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
     maxabs = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
-    launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 3),
-           [x, taps, shift, order, lzz, maxabs], [rows, n, t],
+    launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 4),
+           [x, taps, shift, order, lzz, maxabs],
+           [rows, n, t, int(mac_width(eff_bps, sum_taps_max) == "wide")],
            "lpc_residual_stats")
     lpc_residual_stats.launches += 1
     return lzz, maxabs
@@ -92,15 +89,18 @@ def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
 def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
                     shift: torch.Tensor, order: torch.Tensor,
                     eff_bps: int, sum_taps_max: int) -> torch.Tensor:
-    """``zigzag(res)`` int32 ``[..., n]``, zero at ``i < order`` (same
-    arguments as :func:`lpc_residual_stats`)."""
+    """``zigzag(res)`` int32 ``[..., n]``, zero at ``i < order``, the
+    residual narrowed to int32 first (same arguments as
+    :func:`lpc_residual_stats`)."""
     if x.device.type == "cpu":
         return lpc_residual_zz_plain(x, taps, shift, order, eff_bps,
                                      sum_taps_max)
-    rows, n, t = _check_inputs(x, taps, shift, order, eff_bps, sum_taps_max)
+    rows, n, t = _check_inputs(x, taps, shift, order)
     zz = torch.empty_like(x)
-    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 3),
-           [x, taps, shift, order, zz], [rows, n, t], "lpc_residual_zz")
+    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 4),
+           [x, taps, shift, order, zz],
+           [rows, n, t, int(mac_width(eff_bps, sum_taps_max) == "wide")],
+           "lpc_residual_zz")
     lpc_residual_zz.launches += 1
     return zz
 

@@ -1,11 +1,12 @@
 """The ``rice_stats`` kernel: the exact Rice-parameter search statistics
-of every partition of every requested partition order, from one read of
-the zigzag residual.
+of every partition of every requested partition order.
 
-Replaces the TPU kernel ``flacx/kernels/rice_tile.py::rice_stats_tiles``;
-source, bound and design in ``csrc/rice_stats.cu``.  Any block size whose
-finest partition divides it is taken (the TPU kernel's tile-ratio gap is
-not copied); only the shared-memory size of the finest level limits it.
+Replaces the TPU kernel ``flacx/kernels/rice_tile.py::rice_stats_tiles``
+(its whole-row and chunked forms); source, bound and design in
+``csrc/rice_stats.cu``.  Any block size whose finest partition divides it
+is taken (the TPU kernel's tile-ratio gap is not copied).  Two routes: a
+shared-memory table of the finest level's sums where it fits, and a
+levels route that searches every partition straight from ``zz`` past it.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.rice import rice_stats as rice_stats_plain
 
-#: Shared memory the kernel may use for its finest-level sums (bytes).
+#: Shared memory the smem route may use for its finest-level sums (bytes).
 SMEM_LIMIT = 48 * 1024
 KMAX_LIMIT = 30
 
@@ -26,6 +27,12 @@ KMAX_LIMIT = 30
 def smem_bytes(max_po: int, kmax: int) -> int:
     """Shared memory of the finest-level sums at ``2^max_po`` partitions."""
     return (kmax + 2) * (1 << max_po) * 4
+
+
+def route(max_po: int, kmax: int) -> str:
+    """``"smem"`` where the finest level's table fits :data:`SMEM_LIMIT`,
+    else ``"levels"``."""
+    return "smem" if smem_bytes(max_po, kmax) <= SMEM_LIMIT else "levels"
 
 
 def rice_stats(zz: torch.Tensor, order: torch.Tensor,
@@ -46,17 +53,13 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                          f"divide block size {n}")
     if not 0 <= kmax <= KMAX_LIMIT:
         raise ValueError(f"rice_stats: kmax {kmax} out of range")
-    if smem_bytes(max_po, kmax) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"rice_stats: 2^{max_po} partitions at kmax {kmax} exceed the "
-            "kernel's shared memory; the many-partition search belongs to "
-            "the hi-res slice")
     tot = sum(1 << po for po in levels)
     out = torch.empty((math.prod(lead), 5, tot), dtype=torch.int32,
                       device=zz.device)
     po_mask = sum(1 << po for po in levels)
-    launch(bind("rice_stats", "flacx_rice_stats", 3, 6),
-           [zz, order, out],
+    symbol = {"smem": "flacx_rice_stats",
+              "levels": "flacx_rice_stats_levels"}[route(max_po, kmax)]
+    launch(bind("rice_stats", symbol, 3, 6), [zz, order, out],
            [math.prod(lead), n, max_po, po_mask, kmax, tot], "rice_stats")
     rice_stats.launches += 1
     result = {}

@@ -7,8 +7,10 @@ kernels have no CPU mode).  Run them on the card with
 
 Shapes here are the edges the main paths do not reach: rows that end
 mid-tile, silence, the widest lags, every predictor order, zigzag rows
-past every Rice code cap, and the general slot layout at finest
-partitions of 36, 18 and 16 samples.  Integers must match exactly; the
+past every Rice code cap, the general slot layout at finest partitions of
+36, 18 and 16 samples, and the hi-res routes: the wide MAC with sums past
+2^31, the many-partition Rice search at partitions of 1, 2 and 3 samples,
+and frames packed in device memory.  Integers must match exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
 zero.
@@ -120,12 +122,55 @@ def test_lpc_residual_kernel(dev, n, ntaps):
     assert torch.equal(zz, ref_zz)
 
 
+@pytest.mark.parametrize("n,ntaps", [(1777, 32), (16384, 32)])
+def test_lpc_residual_kernel_wide(dev, n, ntaps):
+    """25-bit rows, precision-15 taps: the int64 MAC, whose sums pass
+    2^31 on the full-scale rows (maxabs clamps to 2^31 - 1)."""
+    r = 12
+    x = torch.from_numpy(rows(8, r, n, bits=25)).to(dev)
+    rng = np.random.default_rng(n + 1)
+    order = rng.integers(0, ntaps + 1, r).astype(np.int32)
+    order[1] = ntaps
+    taps = rng.integers(-(1 << 14), 1 << 14, (r, ntaps)).astype(np.int32)
+    taps[1] = np.where(np.arange(ntaps) % 2, (1 << 14) - 1, -(1 << 14))
+    taps[np.arange(ntaps) >= order[:, None]] = 0
+    shift = rng.integers(0, 16, r).astype(np.int32)
+    shift[1] = 0
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
+    bound = (25, 32 << 14)
+    assert k_lr.mac_width(*bound) == "wide"
+    got = k_lr.lpc_residual_stats(*args, *bound)
+    ref = k_lr.lpc_residual_stats_plain(*args, *bound)
+    zz = k_lr.lpc_residual_zz(*args, *bound)
+    ref_zz = k_lr.lpc_residual_zz_plain(*args, *bound)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(zz, ref_zz)
+    assert int(ref[1].max()) == (1 << 31) - 1
+
+
+@pytest.mark.parametrize("n,porders,kmax,c", [
+    (4096, tuple(range(13)), 30, 2), (8192, tuple(range(13)), 30, 2),
+    (12288, tuple(range(13)), 30, 2), (3072, (0, 4, 9, 10), 30, 4),
+    (16384, tuple(range(15)), 30, 2), (4096, (0, 12), 3, 2)])
+def test_rice_stats_kernel_levels_route(dev, n, porders, kmax, c):
+    """Partitions of 1, 2 and 3 samples, sparse levels on four channels,
+    the hi-res shape (orders 0..14 at 16384) and kmax 3."""
+    assert k_rs.route(max(porders), kmax) == "levels"
+    rice_stats_case(dev, n, porders, kmax, c)
+
+
 @pytest.mark.parametrize("n,porders,kmax,c", [
     (4608, (0, 1, 2, 3, 4, 5), 23, 2), (4096, (0, 2, 7), 30, 2),
     (1152, (3,), 0, 2), (1152, (0, 1, 2, 3, 4, 5), 23, 4)])
 def test_rice_stats_kernel(dev, n, porders, kmax, c):
     """The last case is the best path at block 1152: the four virtual
     channels, finest partitions of 36 samples."""
+    assert k_rs.route(max(porders), kmax) == "smem"
+    rice_stats_case(dev, n, porders, kmax, c)
+
+
+def rice_stats_case(dev, n, porders, kmax, c):
     rng = np.random.default_rng(n)
     scale = 2.0 ** rng.integers(0, 30, size=(6, c, 1))
     zz = np.minimum(rng.exponential(size=(6, c, n)) * scale, 2 ** 30 - 1)
@@ -197,3 +242,51 @@ def frame_pack_case(dev, n, porders, wasted):
     assert k_fp.frame_pack.launches == before + 1
     assert bool(plan.esc_seg.any())
     assert torch.equal(length, ref_len) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("verbatim", [False, True])
+def test_frame_pack_kernel_global_route(dev, verbatim):
+    """Two 5.1 hi-res frames (6 x 16384 24-bit samples, one-sample
+    partitions), packed in device memory; ``verbatim`` makes the first
+    frame all verbatim, its largest size."""
+    b, c, n, prec = 2, 6, 16384, 5
+    porders = tuple(range(15))
+    cfg = EncoderConfig(block_size=n, max_lpc_order=32, bps=24, channels=c,
+                        partition_orders=porders)
+    assert k_fp.route(cfg.max_frame_bytes) == "global"
+    rng = np.random.default_rng(9)
+    x = rows(10, b * c, n, bits=24).reshape(b, c, n)
+    kind = rng.integers(0, 4, (b, c)).astype(np.int32)
+    kind[0, :2] = emit.KIND_FIXED
+    if verbatim:
+        kind[0] = emit.KIND_VERBATIM
+        x[0] = rng.integers(-(1 << 23), 1 << 23, (c, n))
+    x[kind == emit.KIND_CONSTANT] = -77
+    order = np.where(kind >= emit.KIND_FIXED,
+                     rng.integers(0, 5, (b, c)), 0).astype(np.int32)
+    order[kind == emit.KIND_LPC] = np.maximum(order[kind == emit.KIND_LPC], 1)
+    taps = np.zeros((b, c, 32), np.int32)
+    taps[..., :4] = FIXED_PREDICTOR_TAPS[order]
+    shift = np.zeros((b, c), np.int32)
+    bps = np.full((b, c), 24, np.int32)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        x=x, kind=kind, order=order, taps=taps, shift=shift,
+        bps=bps).items()}
+    zz = k_lr.lpc_residual_zz_plain(t["x"], t["taps"], t["shift"],
+                                    t["order"], 24, 15)
+    plan = rice.exact_plan(zz, t["order"], porders, porders, cfg.kmax)
+    hdr = frame_header_symbols(
+        torch.tensor([3, 70000], device=dev),
+        torch.tensor([5, 5], dtype=torch.int32, device=dev), n)
+    sh_v, sh_l = emit.subframe_header_symbols(
+        t["kind"], t["order"], t["bps"], t["x"], t["taps"], t["shift"], prec,
+        plan)
+    pv, pl = emit.partition_param_symbols(t["kind"], plan)
+    kesc = (plan.k_seg.int() | (plan.esc_seg.int() << 7)).contiguous()
+    args = (hdr.values, hdr.lengths, sh_v, sh_l, pv, pl, zz, t["x"], kesc,
+            t["kind"], t["order"], t["bps"], 1, cfg.max_frame_bytes)
+    out, length = k_fp.frame_pack(*args)
+    ref, ref_len = k_fp.frame_pack_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(length, ref_len) and torch.equal(out, ref)
+    assert (int(length[0]) > k_fp.SMEM_LIMIT) == verbatim

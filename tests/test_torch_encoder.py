@@ -29,6 +29,7 @@ from flacx.oracle.encoder import (serialize_metadata_header,
 from flacx_torch.encoder import (BatchEncoder, EncoderConfig,
                                  _encode_batch, config_from_flacx)
 from flacx_torch.ops.lpc import apodization_window_np, window_from_numpy
+from flacx_torch.oracle.decoder import read_frame as own_read_frame
 
 from conftest import make_pcm
 
@@ -132,37 +133,59 @@ def test_batch_encoder_streams_in_small_batches(batch):
 @pytest.mark.parametrize("changes,later", [
     ({"conformance": True, "order_search": "exact"}, "conformance"),
     ({"conformance": True}, "conformance"),
-    ({"bps": 24}, "hi-res"),
-    ({"bps": 24, "windows": ("tukey(0.5)", "hann")}, "bps 24"),
-    ({"partition_orders": tuple(range(10))}, "shared memory"),
+    ({"bps": 24}, None),
+    ({"bps": 24, "windows": ("tukey(0.5)", "hann")}, None),
+    ({"partition_orders": tuple(range(10))}, None),
     ({"partition_orders": tuple(range(10)), "order_search": "exact",
-      "wasted_bits": True}, "rice_stats"),
-    ({"max_lpc_order": 32, "qlp_precision": 15}, "int32 MAC"),
+      "wasted_bits": True}, None),
+    ({"max_lpc_order": 32, "qlp_precision": 15}, None),
     ({"max_lpc_order": 32, "qlp_precision": 15, "order_search": "exact"},
      "int32 MAC"),
 ])
 def test_unsupported_configs_raise(changes, later):
+    """What this slice refuses raises on every device; what the hi-res
+    slice brought (24-bit, 512 partitions, order 32 at precision 15 in
+    the estimate search) encodes a frame that decodes bit-exactly."""
     cfg = EncoderConfig(block_size=N, **changes)
-    with pytest.raises(NotImplementedError, match=later):
-        BatchEncoder(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=later):
-        port_encode(cfg, np.zeros((1, cfg.channels, N), np.int32), 0)
+    if later is not None:
+        with pytest.raises(NotImplementedError, match=later):
+            BatchEncoder(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=later):
+            port_encode(cfg, np.zeros((1, cfg.channels, N), np.int32), 0)
+        return
+    pcm = make_pcm(np.random.default_rng(11), N, 2, cfg.bps, "tonal")
+    planar = np.ascontiguousarray(pcm.T[None])
+    frames = BatchEncoder(cfg, batch_frames=1, device="cpu") \
+        .encode_frames(planar, 0)
+    _, planes = own_read_frame(frames[0], cfg.bps)
+    np.testing.assert_array_equal(np.asarray(planes), planar[0])
 
 
 def test_rice_shared_memory_refusal_is_the_same_on_every_device():
-    """A partition count past ``rice_stats``' shared memory is refused by
-    the configuration check, before any device is touched, and the
-    kernel wrapper's own limit is the same one."""
+    """Partition counts past ``rice_stats``' shared memory and frames past
+    ``frame_pack``'s are no longer refused: each kernel picks its other
+    route by the same limit, from the configuration alone, and the
+    configuration check accepts them."""
+    from flacx_torch.encoder import check_supported
+    from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import rice_stats as k_rs
     ok = EncoderConfig(block_size=N, partition_orders=tuple(range(9)))
-    too_many = EncoderConfig(block_size=N, partition_orders=tuple(range(10)))
+    many = EncoderConfig(block_size=N, partition_orders=tuple(range(10)))
     assert k_rs.smem_bytes(max(ok.porders), ok.kmax) <= k_rs.SMEM_LIMIT
-    assert (k_rs.smem_bytes(max(too_many.porders), too_many.kmax)
-            > k_rs.SMEM_LIMIT)
-    BatchEncoder(ok, device="cpu")
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            BatchEncoder(too_many, device=device)
+    assert k_rs.route(max(ok.porders), ok.kmax) == "smem"
+    assert k_rs.smem_bytes(max(many.porders), many.kmax) > k_rs.SMEM_LIMIT
+    assert k_rs.route(max(many.porders), many.kmax) == "levels"
+    hires = dict(block_size=16384, max_lpc_order=32, bps=24,
+                 partition_orders=tuple(range(16)))
+    stereo = EncoderConfig(**hires)
+    six = EncoderConfig(**hires, channels=6)
+    assert (stereo.max_frame_bytes, six.max_frame_bytes) == (102656, 295168)
+    assert k_fp.route(stereo.max_frame_bytes) == "smem"
+    assert k_fp.route(six.max_frame_bytes) == "global"
+    assert k_rs.route(max(stereo.porders), stereo.kmax) == "levels"
+    for cfg in (many, stereo, six):
+        check_supported(cfg)
+        BatchEncoder(cfg, device="cpu")
 
 
 def test_batch_encoder_defaults_to_the_card():

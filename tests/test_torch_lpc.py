@@ -132,12 +132,19 @@ def test_residual_stats_and_zz_match_flacx(chosen):
 
 
 def test_residual_wrappers_refuse_past_int32_bound(chosen):
+    """Past the int32 MAC bound the wrappers take the wide (int64) MAC
+    instead of refusing; on these 17-bit rows it gives the int32 MAC's
+    values."""
+    from flacx_torch.kernels.lpc_residual import mac_width
     x_v, taps, shift, order = chosen
     args = [torch.from_numpy(a) for a in (x_v, taps, shift, order)]
-    with pytest.raises(NotImplementedError, match="int32 MAC"):
-        lpc_residual_stats(*args, 25, 32 << 14)
-    with pytest.raises(NotImplementedError, match="int32 MAC"):
-        lpc_residual_zz(*args, 25, 32 << 14)
+    assert mac_width(17, SUM_TAPS_MAX) == "int32"
+    assert mac_width(25, 32 << 14) == "wide"
+    for got, want in zip(lpc_residual_stats(*args, 25, 32 << 14),
+                         lpc_residual_stats(*args, 17, SUM_TAPS_MAX)):
+        assert torch.equal(got, want)
+    assert torch.equal(lpc_residual_zz(*args, 25, 32 << 14),
+                       lpc_residual_zz(*args, 17, max(SUM_TAPS_MAX, 15)))
 
 
 def test_window_table_matches_flacx():

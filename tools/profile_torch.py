@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of a flacx_torch encode goes, on one card.
 
-    python3 tools/profile_torch.py [--config headline|best] [--block N]
-                                   [--batches 3] [--out profile_out]
+    python3 tools/profile_torch.py [--config headline|best|hires|hires6]
+                                   [--block N] [--batches 3]
+                                   [--out profile_out]
 
-Encodes one 1024-frame batch (16-bit stereo, the two-tone test signal
-from seed 0xF1AC) with ``BatchEncoder.encode_batch_device`` under
-``torch.profiler``.  ``--config headline`` (the default) is block 4608,
-LPC order 12, estimate order search; ``--config best`` is the
-best-compression encode (``encode --best``: exact order search over the
-windows Tukey(0.5), Hann and flattop, f64 analysis) at ``--block`` 4608,
-2304 or 1152.  Prints:
+Encodes one batch with ``BatchEncoder.encode_batch_device`` under
+``torch.profiler``.  ``--config headline`` (the default) is 1024 frames
+of 16-bit stereo (the two-tone test signal from seed 0xF1AC) at block
+4608, LPC order 12, estimate order search; ``--config best`` is the
+best-compression encode of the same PCM (``encode --best``: exact order
+search over the windows Tukey(0.5), Hann and flattop, f64 analysis) at
+``--block`` 4608, 2304 or 1152; ``--config hires`` is the hi-res encode
+(24-bit, block 16384, LPC order 32, partition orders 0..15) of 128
+stereo frames, ``--config hires6`` of 64 5.1 frames, the PCM of
+``chip_smoke.py``'s hi-res phases.  Prints:
 the wall time per batch, the device time per batch (sum of kernel times)
 and the device's idle share of the window, the kernel time and host time
 of each pipeline stage (profiler ranges around the stage functions), and
@@ -81,8 +85,8 @@ def self_device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("headline", "best"),
-                    default="headline")
+    ap.add_argument("--config", choices=("headline", "best", "hires",
+                                         "hires6"), default="headline")
     ap.add_argument("--block", type=int, default=4608,
                     help="block size of --config best")
     ap.add_argument("--batches", type=int, default=3)
@@ -93,17 +97,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: CUDA is not available", file=sys.stderr)
         return 1
-    from chip_smoke import B, SEED, best_config, blocks_of, card_line, \
-        synth_pcm
+    from chip_smoke import (B, HIRES, HIRES_N, SEED, best_config,
+                            blocks_of, card_line, hires_config, hires_pcm,
+                            synth_pcm)
     from flacx_torch.encoder import BatchEncoder, EncoderConfig
 
     annotate_stages(torch)
-    n = args.block if args.config == "best" else 4608
-    cfg = (best_config(n) if args.config == "best"
-           else EncoderConfig(block_size=n, max_lpc_order=12))
-    enc = BatchEncoder(cfg, batch_frames=B)
-    pcm = synth_pcm(np.random.default_rng(SEED), n * B)
-    planar = torch.from_numpy(blocks_of(pcm, n)).cuda()
+    if args.config.startswith("hires"):
+        n = HIRES_N
+        channels, frames, _ = HIRES[args.config]
+        cfg = hires_config(channels)
+        planar = blocks_of(hires_pcm(channels, frames), n, np.int32)
+    else:
+        n, frames = (args.block if args.config == "best" else 4608), B
+        cfg = (best_config(n) if args.config == "best"
+               else EncoderConfig(block_size=n, max_lpc_order=12))
+        planar = blocks_of(synth_pcm(np.random.default_rng(SEED), n * B), n)
+    enc = BatchEncoder(cfg, batch_frames=frames)
+    planar = torch.from_numpy(planar).cuda()
     for _ in range(2):                                   # warm-up, build
         enc.encode_batch_device(planar, 0)
     torch.cuda.synchronize()
@@ -124,7 +135,8 @@ def main() -> int:
     n_kernels = sum(e.count for e in kernels) / args.batches
 
     print(f"card {card_line()}; torch {torch.__version__}; config "
-          f"{args.config}, block {n}, {B} frames per batch")
+          f"{args.config}, block {n}, {frames} frames x {cfg.channels} "
+          f"channels per batch")
     print(f"wall {wall_ms:.3f} ms per batch; device busy {dev_ms:.3f} ms "
           f"per batch ({n_kernels:.0f} kernel launches); device idle share "
           f"{max(0.0, 1 - dev_ms / wall_ms):.4f}")
