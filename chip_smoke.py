@@ -95,27 +95,38 @@ def median_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def kernel_ms(torch, fn, reps: int, symbol: str) -> float:
-    """Median device time of the kernel whose name contains ``symbol`` over
-    ``reps`` calls of ``fn`` (profiler trace), free of the wrapper's host
-    time.  The trace drops a launch's record now and then; a trace that
-    holds fewer than half of them is taken again, up to three times."""
-    fn()
+def kernel_times(torch, calls: dict, reps: int) -> dict:
+    """Median device ms of each kernel in ``calls`` (a symbol its name
+    contains → a function that launches it), from one profiler trace in
+    which each function runs ``reps`` times: free of the wrappers' host
+    time.  The profiler drops a launch's record now and then, the more
+    often the more traces a process has taken; a trace that holds fewer
+    than half of some kernel's launches is taken again, up to three
+    times."""
+    assert not any(a != b and a in b for a in calls for b in calls), calls
+    for fn in calls.values():
+        fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     seen = []
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
+            for fn in calls.values():
+                for _ in range(reps):
+                    fn()
             torch.cuda.synchronize()
-        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                 if symbol in e.name and "CUDA" in str(e.device_type)]
-        seen.append(len(times))
-        if 2 * len(times) >= reps and len(times) <= reps:
-            return float(np.median(times))
-    raise RuntimeError(f"profiler saw {seen} launches of {symbol} in three "
-                       f"traces of {reps}")
+        times = {symbol: [] for symbol in calls}
+        for e in prof.events():
+            if "CUDA" in str(e.device_type):
+                for symbol, ts in times.items():
+                    if symbol in e.name:
+                        ts.append(e.time_range.elapsed_us() / 1e3)
+        seen.append({symbol: len(ts) for symbol, ts in times.items()})
+        if all(reps <= 2 * len(ts) <= 2 * reps for ts in times.values()):
+            return {symbol: float(np.median(ts))
+                    for symbol, ts in times.items()}
+    raise RuntimeError(f"profiler saw {seen} launches in three traces of "
+                       f"{reps} each")
 
 
 def nbytes(*items) -> int:
@@ -165,32 +176,45 @@ def capture_main_path_inputs(names=HEADLINE_SPIES):
 
 
 def kernel_row(torch, name, symbol, kernel, plain, args, compare, work,
-               source, replaces) -> dict:
-    """Hold ``kernel`` against ``plain`` on ``args``, time both, and
-    return the kernel's JSON row (``launches`` and ``batches`` filled in
-    later).  ``work`` lists ``(operations, rate)`` pairs, one per
-    operation type; their times add up."""
+               source, replaces, moved=None) -> dict:
+    """Hold ``kernel`` against ``plain`` on ``args``, time the plain
+    version, and return the kernel's JSON row (``ms`` filled in by
+    :func:`time_rows`, ``launches`` and ``batches`` later).  ``work`` lists
+    ``(operations, rate)`` pairs, one per operation type; their times add
+    up.  ``moved`` is the bytes the function must move, by default every
+    argument read once and every output written once."""
     out_k = kernel(*args)
     out_p = plain(*args)
     torch.cuda.synchronize()
     err = compare(torch, out_k, out_p)
-    ms = kernel_ms(torch, lambda: kernel(*args), 20, symbol)
     wrapper_ms = median_ms(torch, lambda: kernel(*args), 20)
     plain_ms = median_ms(torch, lambda: plain(*args), 5)
-    moved = nbytes(args, out_k)
+    moved = nbytes(args, out_k) if moved is None else moved
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = sum(ops / rate for ops, rate in work) * 1e3
     ops_text = " + ".join(f"{ops} ops at {rate:.3e}/s" for ops, rate in work)
-    print(f"kernel {name}: max_abs_err {err} ms {ms:.4f} (wrapper call "
-          f"{wrapper_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
-          f"{max(t_bytes, t_ops):.4f} ({moved} bytes, {ops_text})",
-          flush=True)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "batches": 0,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": None, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None,
+            "_launch": (symbol, lambda: kernel(*args)),
+            "_text": (f"(wrapper call {wrapper_ms:.4f}) plain_ms "
+                      f"{plain_ms:.4f} bound_ms {max(t_bytes, t_ops):.4f} "
+                      f"({moved} bytes, {ops_text})")}
+
+
+def time_rows(torch, rows: list[dict], reps: int = 20) -> None:
+    """Fill in every row's ``ms`` from one profiler trace of all their
+    kernels (``reps`` launches each) and print the rows."""
+    launches = dict(row["_launch"] for row in rows)
+    assert len(launches) == len(rows), "two rows share a kernel symbol"
+    ms = kernel_times(torch, launches, reps)
+    for row in rows:
+        row["ms"] = ms[row.pop("_launch")[0]]
+        print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} ms "
+              f"{row['ms']:.4f} {row.pop('_text')}", flush=True)
 
 
 def exact(torch, a, b):
@@ -225,10 +249,41 @@ def rice_equal(torch, a, b):
     return 0
 
 
-def hold(torch, name: str, wrapper: str, args: tuple) -> dict:
+def mac_lengths(taps) -> dict:
+    """Rows of ``lpc_residual`` by the length of their MAC loop: their
+    taps up to the last nonzero one."""
+    t = taps.cpu().numpy()
+    last = ((t != 0) * np.arange(1, t.shape[-1] + 1)).max(-1)
+    keys, counts = np.unique(last, return_counts=True)
+    return dict(zip(keys.tolist(), counts.tolist()))
+
+
+def frame_pack_bytes(args) -> int:
+    """The bytes ``frame_pack`` must move on this run's data: each symbol's
+    value and length at 4 B each (the values are int64 of which the kernel
+    reads the low 32 bits); per channel the samples its subframe codes
+    (``x`` of a verbatim one; ``zz`` past the warm-up, ``kesc`` and the
+    partition parameters of a fixed or LPC one; none of a constant one)
+    and its kind, order and width; the frame bytes and lengths written
+    once."""
+    from flacx_torch.ops.emit import KIND_FIXED, KIND_VERBATIM
+    hdr_v, sh_v, pv, zz, kesc, kind, order = (args[i] for i in
+                                              (0, 2, 4, 6, 8, 9, 10))
+    max_frame_bytes = args[13]
+    n = zz.shape[-1]
+    coded = 4 * ((n - order.long()) + kesc.shape[-1] + 2 * pv.shape[-1])
+    per_channel = ((kind == KIND_VERBATIM) * 4 * n
+                   + (kind >= KIND_FIXED) * coded)
+    return (8 * (hdr_v.numel() + sh_v.numel()) + int(per_channel.sum())
+            + 12 * kind.numel() + hdr_v.shape[0] * (max_frame_bytes + 4))
+
+
+def hold(torch, name: str, wrapper: str, args: tuple,
+         replaces: str | None = None) -> dict:
     """The JSON row of the kernel behind ``wrapper`` (a key of
     :func:`launch_counts`), held against its plain version on ``args``,
-    the arguments the path gave its first launch."""
+    the arguments the path gave its first launch; ``replaces`` names the
+    TPU kernels where the path, not the shapes, decides them."""
     from flacx_torch.kernels import analysis as k_an
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import lpc_allorder as k_la
@@ -270,18 +325,22 @@ def hold(torch, name: str, wrapper: str, args: tuple) -> dict:
         zz_mode = wrapper == "lpc_residual_zz"
         xs, taps = args[0], args[1]
         wide = k_lr.mac_width(args[4], args[5]) == "wide"
-        # the int32 MAC's multiply-adds count as scalar operations; a wide
-        # one (IMAD.WIDE) as two int32 multiply-adds
-        work = ([(xs.numel() * 2 * taps.shape[-1], INT32_MAD_PER_S),
+        # one multiply-add per sample and nonzero tap of its row: the int32
+        # MAC's count as two scalar operations, a wide one (IMAD.WIDE) as
+        # two int32 multiply-adds; six scalar operations a sample besides
+        macs = int((taps != 0).sum()) * xs.shape[-1]
+        work = ([(2 * macs, INT32_MAD_PER_S),
                  (xs.numel() * 6, SCALAR_OPS_PER_S)] if wide else
-                [(xs.numel() * (2 * taps.shape[-1] + 6), SCALAR_OPS_PER_S)])
+                [(2 * macs + xs.numel() * 6, SCALAR_OPS_PER_S)])
         return kernel_row(
             torch, name,
             f"lpc_residual_kernel<{str(zz_mode).lower()}, "
             f"{str(wide).lower()}>",
             getattr(k_lr, wrapper), getattr(k_lr, wrapper + "_plain"), args,
             exact, work, csrc + "lpc_residual.cu",
-            f"flacx/kernels/lpcres_tile.py:{225 if zz_mode else 392}")
+            "flacx/kernels/lpcres_tile.py:" + ("392" if not zz_mode else
+                                               "225" if xs.shape[-1] > 8192
+                                               else "199"))
     if wrapper == "lpc_allorder":
         x, qcoefs = args[0], args[1]
         p = qcoefs.shape[-2]
@@ -304,24 +363,18 @@ def hold(torch, name: str, wrapper: str, args: tuple) -> dict:
             f"flacx/kernels/rice_tile.py:{293 if levels else 266}")
     assert wrapper == "frame_pack"
     xs, psize = args[7], args[12]
-    _, c, n = xs.shape
-    # flacx's tile-string stack of a segmented-layout frame: one header
-    # string and one per 512 slots per channel, 512 rows x 128 lanes x
-    # 4 B, three copies; past 80 MiB it merges level by level
-    stack = c * (1 + -(-(n + n // psize) // 512)) * 512 * 128 * 4 * 3
-    if psize < 40 and stack > 80 * 2 ** 20:
-        replaces = ("flacx/kernels/emit_tile.py:298 + bitpack_tile.py:363 + "
-                    "bitpack_tile.py:444 + crc_tile.py:84")
-    elif not blocked_layout_ok(xs.shape[-1], psize):
-        replaces = "flacx/kernels/bitpack_tile.py:316 + bitpack_tile.py:268"
-    else:
-        replaces = ("flacx/kernels/emit_tile.py:203 + bitpack_tile.py:363 + "
-                    "bitpack_tile.py:529 + crc_tile.py:84")
+    if replaces is None:
+        replaces = (
+            "flacx/kernels/emit_tile.py:203 + bitpack_tile.py:363 + "
+            "bitpack_tile.py:529 + crc_tile.py:84"
+            if blocked_layout_ok(xs.shape[-1], psize) else
+            "flacx/kernels/bitpack_tile.py:316 + bitpack_tile.py:268")
     return kernel_row(
         torch, name, "frame_pack_kernel", k_fp.frame_pack,
         k_fp.frame_pack_plain, args, exact,
         [(xs.numel() * 30 + xs.shape[0] * args[13] * 4, SCALAR_OPS_PER_S)],
-        csrc + "frame_pack.cu", replaces)
+        csrc + "frame_pack.cu", replaces,
+        frame_pack_bytes(args))
 
 
 def launch_counts() -> dict:
@@ -432,6 +485,7 @@ def headline_phase(torch, pcm: np.ndarray) -> list[dict]:
     torch.cuda.synchronize()
     rows = [hold(torch, name, name, captured[name])
             for name in HEADLINE_SPIES]
+    time_rows(torch, rows)
     del captured
 
     t0 = time.perf_counter()
@@ -497,6 +551,7 @@ def best_rows(torch, bs: int, enc, planar: np.ndarray) -> list[dict]:
         row = hold(torch, f"{name}@{bs}", wrapper, args)
         row["wrapper"] = wrapper
         rows.append(row)
+    time_rows(torch, rows)
     return rows
 
 
@@ -657,12 +712,24 @@ def hires_phase(torch, label: str) -> list[dict]:
     # psize 1: one param slot before every sample, none off the grid
     assert args[12] == 1 and args[4].shape[-1] == HIRES_N
     assert len(param_slot_positions(HIRES_N, 1)) == HIRES_N
+    stats_taps, stats_order = captured["lpc_residual_stats"][1:4:2]
+    orders = np.unique(stats_order.cpu().numpy(), return_counts=True)
+    print(f"{label}: lpc_residual rows by chosen LPC order (stats) "
+          f"{dict(zip(*(a.tolist() for a in orders)))}; by MAC length: stats "
+          f"{mac_lengths(stats_taps)}, zz "
+          f"{mac_lengths(captured['lpc_residual_zz'][1])}", flush=True)
     rows = []
     for wrapper in HIRES_PATH:
-        rows.append(hold(torch, f"{names[wrapper]}@{label}", wrapper,
-                         captured[wrapper]))
+        rows.append(hold(
+            torch, f"{names[wrapper]}@{label}", wrapper, captured[wrapper],
+            # flacx's segmented emit at one-sample partitions and, its
+            # tile-string stack past 80 MiB, the leveled merge
+            "flacx/kernels/emit_tile.py:298 + bitpack_tile.py:363 + "
+            "bitpack_tile.py:444 + crc_tile.py:84"
+            if wrapper == "frame_pack" else None))
         rows[-1]["wrapper"] = wrapper
-    del captured, zz, args
+    time_rows(torch, rows)
+    del captured, zz, args, stats_taps, stats_order
 
     t0 = time.perf_counter()
     out, counts = counted_run(lambda: enc.encode_frames(planar, 0),
@@ -690,24 +757,7 @@ def hires_phase(torch, label: str) -> list[dict]:
     return rows
 
 
-def phase_in_child(label: str) -> list[dict]:
-    """Run the hi-res phase ``label`` in a process of its own and return
-    its kernel rows; its lines are printed here.  A process's profiler
-    records fewer and fewer kernels the more traces it has taken (none at
-    all after some 25), so each hi-res phase starts a fresh one."""
-    proc = subprocess.run([sys.executable, __file__, "--phase", label],
-                          capture_output=True, text=True, timeout=900)
-    lines = proc.stdout.splitlines()
-    for line in lines[:-1]:
-        print(line, flush=True)
-    if proc.returncode or not lines:
-        sys.stderr.write(proc.stderr)
-        raise RuntimeError(f"phase {label} failed with exit code "
-                           f"{proc.returncode}")
-    return json.loads(lines[-1])["rows"]
-
-
-def main(argv: list[str]) -> int:
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -715,10 +765,6 @@ def main(argv: list[str]) -> int:
 
     from flacx_torch.kernels.build import build_all
 
-    if argv[:1] == ["--phase"]:                  # one hi-res phase
-        build_all()
-        print(json.dumps({"rows": hires_phase(torch, argv[1])}), flush=True)
-        return 0
     t_start = time.perf_counter()
     card = card_line()
     build_s = build_all()
@@ -730,7 +776,7 @@ def main(argv: list[str]) -> int:
     rows += best_phase(torch, pcm)
     wasted_phase(pcm)
     for label in HIRES:
-        rows += phase_in_child(label)
+        rows += hires_phase(torch, label)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)
@@ -743,4 +789,4 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

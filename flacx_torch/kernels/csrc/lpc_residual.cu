@@ -30,16 +30,20 @@
 //
 // Bound on the card.  int32 MAC: bytes.  stats reads 4 B/sample (75.5 MB
 // at the headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz reads and
-// writes 4 B/sample each (1024 x 2 x 4608: 75.5 MB, 22.5 us); the 12
-// multiply-adds per sample at order 12 are below that.  Wide MAC:
-// operations.  At hi-res stats takes 32 IMAD.WIDE per sample over 128 x 4
-// x 16384 samples, 5.4e8 int32 multiply-adds' worth at 64 per clock per
-// SM (132 SMs, 1.98 GHz): 32 us, against 10 us for its 33.6 MB.
+// writes 4 B/sample each (1024 x 2 x 4608: 75.5 MB, 22.5 us); the at most
+// 12 multiply-adds per sample at order 12 are below that.  Wide MAC:
+// operations, one IMAD.WIDE (two int32 multiply-adds' worth at 64 per
+// clock per SM, 132 SMs, 1.98 GHz) per sample and nonzero tap: at most
+// 32 us for hi-res stats (128 x 4 x 16384 samples, every row at order
+// 32) against 10 us for its 33.6 MB.
 //
 // Design: one block per row; the row streams through shared memory in
 // tiles with a 32-sample halo (zero before the row start, as the plain
 // version's zero-filled shifts), the taps sit in shared memory, each
-// thread walks its samples, and stats end in a block reduction.
+// thread walks its samples, and stats end in a block reduction.  The MAC
+// runs up to the row's last nonzero tap, not over all T: a fixed
+// predictor padded to 32 taps costs its order, and a row's loop length is
+// one for the whole block.
 
 #include "common.cuh"
 
@@ -48,6 +52,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TILE = 1024;
 constexpr int HALO = 32;
+static_assert(HALO == 32, "the taps are loaded and scanned by warp 0");
 constexpr long long INT32_MAX_LL = 2147483647LL;
 
 // Sample c of the tile in the MAC width of the template: the residual
@@ -94,12 +99,19 @@ lpc_residual_kernel(const int32_t* __restrict__ x,
   __shared__ int32_t tp[HALO];
   __shared__ long long red_s[WARPS];
   __shared__ int red_m[WARPS];
+  __shared__ int nt_s;  // taps up to the row's last nonzero one
 
   const int row = blockIdx.x;
   const int32_t* xr = x + (size_t)row * n;
-  if (threadIdx.x < HALO)
-    tp[threadIdx.x] =
+  if (threadIdx.x < HALO) {  // warp 0
+    const int32_t t =
         threadIdx.x < ntaps ? taps[(size_t)row * ntaps + threadIdx.x] : 0;
+    tp[threadIdx.x] = t;
+    const unsigned nz = __ballot_sync(0xffffffffu, t != 0);
+    if (threadIdx.x == 0) nt_s = 32 - __clz(nz);
+  }
+  __syncthreads();
+  const int nt = nt_s;
   const int sh = shift[row];
   const int ord = order[row];
   long long s = 0;
@@ -117,7 +129,7 @@ lpc_residual_kernel(const int32_t* __restrict__ x,
       int32_t res;
       long long z;
       int a;
-      residual<WIDE>(xs, tp, HALO + j, ntaps, sh, res, z, a);
+      residual<WIDE>(xs, tp, HALO + j, nt, sh, res, z, a);
       if (i < ord) res = 0, z = 0, a = 0;
       if (ZZ) {
         zz[(size_t)row * n + i] = flacx::zigzag32(res);

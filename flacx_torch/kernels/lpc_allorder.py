@@ -3,8 +3,8 @@ residual at every order 1..P of every row, the residuals never written.
 
 Replaces the TPU kernel ``flacx/kernels/lpcres_tile.py::
 lpc_allorder_stats``; source, bound and design in ``csrc/lpc_allorder.cu``.
-Only the single-int32 MAC is ported: the wrapper refuses widths past its
-bound.
+Only the single-int32 MAC is ported: ``encoder.check_supported`` refuses
+the exact search past its bound, and both versions assert it.
 """
 
 from __future__ import annotations
@@ -20,21 +20,11 @@ from flacx_torch.ops.rice import zigzag
 MAX_ORDER = 32
 
 
-def check_mac_bound(what: str, eff_bps: int, sum_taps_max: int) -> None:
-    """Refuse widths past the single-int32 MAC bound."""
-    if not mac_int32_ok(eff_bps, sum_taps_max):
-        raise NotImplementedError(
-            f"{what}: eff_bps {eff_bps} with tap magnitude sum "
-            f"{sum_taps_max} breaks the int32 MAC bound; the wide MAC of "
-            "lpc_allorder (the exact order search at 24-bit) belongs to a "
-            "later slice")
-
-
 def lpc_allorder_plain(x: torch.Tensor, qcoefs: torch.Tensor,
                        shifts: torch.Tensor, eff_bps: int, sum_taps_max: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`lpc_allorder`."""
-    check_mac_bound("lpc_allorder", eff_bps, sum_taps_max)
+    assert mac_int32_ok(eff_bps, sum_taps_max), "past the int32 MAC bound"
     p, n = qcoefs.shape[-2], x.shape[-1]
     res = lpc_residuals_all(x, qcoefs, shifts, torch.int32)  # [..., P, n]
     dev = x.device
@@ -61,7 +51,7 @@ def lpc_allorder(x: torch.Tensor, qcoefs: torch.Tensor, shifts: torch.Tensor,
     """
     if x.device.type == "cpu":
         return lpc_allorder_plain(x, qcoefs, shifts, eff_bps, sum_taps_max)
-    check_mac_bound("lpc_allorder", eff_bps, sum_taps_max)
+    assert mac_int32_ok(eff_bps, sum_taps_max), "past the int32 MAC bound"
     lead = x.shape[:-1]
     p, t = qcoefs.shape[-2:]
     check(x, "x", torch.int32)

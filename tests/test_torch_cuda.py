@@ -110,6 +110,8 @@ def test_lpc_residual_kernel(dev, n, ntaps):
     taps[np.arange(ntaps) >= order[:, None]] = 0
     taps[2, :4] = FIXED_PREDICTOR_TAPS[4]
     order[2] = max(order[2], 4)
+    taps[3], order[3] = 0, ntaps       # the MAC runs to the last nonzero tap
+    taps[3, -1] = 7
     shift = rng.integers(0, 16, r).astype(np.int32)
     args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
     bound = (17, 16 * 32)
@@ -134,6 +136,9 @@ def test_lpc_residual_kernel_wide(dev, n, ntaps):
     taps = rng.integers(-(1 << 14), 1 << 14, (r, ntaps)).astype(np.int32)
     taps[1] = np.where(np.arange(ntaps) % 2, (1 << 14) - 1, -(1 << 14))
     taps[np.arange(ntaps) >= order[:, None]] = 0
+    taps[3], order[3] = 0, ntaps       # the MAC runs to the last nonzero tap
+    taps[3, -1] = -(1 << 14)
+    taps[4, ::2] = 0                   # and over interior zeros
     shift = rng.integers(0, 16, r).astype(np.int32)
     shift[1] = 0
     args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]

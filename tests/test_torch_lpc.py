@@ -133,18 +133,24 @@ def test_residual_stats_and_zz_match_flacx(chosen):
 
 def test_residual_wrappers_refuse_past_int32_bound(chosen):
     """Past the int32 MAC bound the wrappers take the wide (int64) MAC
-    instead of refusing; on these 17-bit rows it gives the int32 MAC's
-    values."""
+    instead of refusing, and equal flacx's int64 XLA route there."""
     from flacx_torch.kernels.lpc_residual import mac_width
     x_v, taps, shift, order = chosen
     args = [torch.from_numpy(a) for a in (x_v, taps, shift, order)]
     assert mac_width(17, SUM_TAPS_MAX) == "int32"
     assert mac_width(25, 32 << 14) == "wide"
-    for got, want in zip(lpc_residual_stats(*args, 25, 32 << 14),
-                         lpc_residual_stats(*args, 17, SUM_TAPS_MAX)):
-        assert torch.equal(got, want)
-    assert torch.equal(lpc_residual_zz(*args, 25, 32 << 14),
-                       lpc_residual_zz(*args, 17, max(SUM_TAPS_MAX, 15)))
+    ref_res, ref_lzz, ref_max = (np.asarray(a) for a in jax.jit(
+        functools.partial(fx_lpc.predict_residual_fused, eff_bps=25,
+                          sum_taps_max=32 << 14, use_tile_kernel=False))(
+        *(jnp.asarray(a) for a in (x_v, taps, shift, order))))
+    assert ref_res.dtype == np.int64
+    lzz, maxabs = lpc_residual_stats(*args, 25, 32 << 14)
+    np.testing.assert_array_equal(lzz.numpy(), ref_lzz)
+    np.testing.assert_array_equal(maxabs.numpy(), ref_max)
+    in_resid = np.arange(N) >= order[..., None]
+    np.testing.assert_array_equal(
+        lpc_residual_zz(*args, 25, 32 << 14).numpy(),
+        np.asarray(fx_zigzag(jnp.asarray(ref_res))) * in_resid)
 
 
 def test_window_table_matches_flacx():

@@ -63,8 +63,8 @@ def main() -> int:
         restore()
     fp_args = captured["frame_pack"]
     cs.exact(torch, k_fp.frame_pack(*fp_args), k_fp.frame_pack_plain(*fp_args))
-    ms = cs.kernel_ms(torch, lambda: k_fp.frame_pack(*fp_args), args.reps,
-                      "frame_pack_kernel")
+    ms = cs.kernel_times(torch, {"frame_pack_kernel": lambda: k_fp.frame_pack(
+        *fp_args)}, args.reps)["frame_pack_kernel"]
     print(json.dumps({"tree": args.tree, "frame_pack_ms": ms,
                       "reps": args.reps, "psize": fp_args[12],
                       "card": cs.card_line()}), flush=True)
