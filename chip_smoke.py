@@ -16,7 +16,13 @@ these paths through ``BatchEncoder`` on the card:
 * the hi-res encode (``BASELINE.json`` configs[2]: 24-bit/96 kHz, block
   16384, LPC order 32, partition orders 0..15, estimate search): one
   128-frame stereo batch (``hires``) and one 64-frame 5.1 batch
-  (``hires6``, frames past ``frame_pack``'s shared memory).
+  (``hires6``, frames past ``frame_pack``'s shared memory);
+* the file encode (``file``): ``python -m flacx_torch encode`` in process
+  on WAV files written from the seed, a 3-minute 16-bit CD rip at the
+  defaults and at ``-b 1152`` (the ``lpc_residual`` res mode) and a 60 s
+  24-bit master with ``--best`` (the wide ``lpc_allorder``).  Each file's
+  STREAMINFO, MD5, CRCs and sampled frames are checked, and a 20 s
+  excerpt is encoded on the card and with ``--device cpu``.
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes its path gives it, those of the best path at each block size.  For
@@ -27,7 +33,7 @@ plain CPU path byte for byte wherever both chose the same coefficients.
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
-path and ``<mode>@hires`` / ``<mode>@hires6`` on the hi-res ones;
+and file paths and ``<mode>@hires`` / ``<mode>@hires6`` on the hi-res ones;
 ``launches`` counts the launches of that path's counted encode, which
 runs ``batches`` batches), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -146,10 +152,11 @@ HEADLINE_SPIES = ("analysis", "lpc_residual_stats", "lpc_residual_zz",
                   "rice_stats", "frame_pack")
 
 
-def capture_main_path_inputs(names=HEADLINE_SPIES):
+def capture_main_path_inputs(names=HEADLINE_SPIES, per_block=False):
     """Wrap each named kernel wrapper where the encoder calls it, so one
     run of the path records the arguments of every kernel's first launch
-    (positional arguments, keywords folded in by name order); returns
+    (positional arguments, keywords folded in by name order), under its
+    name, or with ``per_block`` under ``(name, block size)``; returns
     ``(captured, restore)``."""
     import flacx_torch.encoder as encoder
     import flacx_torch.ops.framepack as framepack
@@ -162,7 +169,8 @@ def capture_main_path_inputs(names=HEADLINE_SPIES):
         originals.append((module, attr, fn))
 
         def wrapped(*args, **kwargs):
-            captured.setdefault(attr, args + tuple(kwargs.values()))
+            key = (attr, args[0].shape[-1]) if per_block else attr
+            captured.setdefault(key, args + tuple(kwargs.values()))
             return fn(*args, **kwargs)
         setattr(module, attr, wrapped)
 
@@ -321,8 +329,10 @@ def hold(torch, name: str, wrapper: str, args: tuple,
             csrc + "analysis.cu",
             "flacx/kernels/autocorr_tile.py:124 + "
             "flacx/kernels/zzsum_tile.py:115")
-    if wrapper in ("lpc_residual_stats", "lpc_residual_zz"):
-        zz_mode = wrapper == "lpc_residual_zz"
+    if wrapper in ("lpc_residual_stats", "lpc_residual_zz",
+                   "lpc_residual_res"):
+        mode = ("lpc_residual_stats", "lpc_residual_zz",
+                "lpc_residual_res").index(wrapper)
         xs, taps = args[0], args[1]
         wide = k_lr.mac_width(args[4], args[5]) == "wide"
         # one multiply-add per sample and nonzero tap of its row: the int32
@@ -334,21 +344,27 @@ def hold(torch, name: str, wrapper: str, args: tuple,
                 [(2 * macs + xs.numel() * 6, SCALAR_OPS_PER_S)])
         return kernel_row(
             torch, name,
-            f"lpc_residual_kernel<{str(zz_mode).lower()}, "
-            f"{str(wide).lower()}>",
+            f"lpc_residual_kernel<{mode}, {str(wide).lower()}>",
             getattr(k_lr, wrapper), getattr(k_lr, wrapper + "_plain"), args,
             exact, work, csrc + "lpc_residual.cu",
-            "flacx/kernels/lpcres_tile.py:" + ("392" if not zz_mode else
-                                               "225" if xs.shape[-1] > 8192
-                                               else "199"))
+            "flacx/kernels/lpcres_tile.py:" + ("392", "225" if xs.shape[-1]
+                                               > 8192 else "199",
+                                               "479")[mode])
     if wrapper == "lpc_allorder":
         x, qcoefs = args[0], args[1]
         p = qcoefs.shape[-2]
+        wide = k_lr.mac_width(args[3], args[4]) == "wide"
+        # int32: every order's o multiply-adds a sample; wide: one
+        # IMAD.WIDE (two int32 multiply-adds) a sample and nonzero tap
+        work = (2 * int((qcoefs != 0).sum()) * x.shape[-1] if wide
+                else x.numel() * p * (p + 1) // 2)
         return kernel_row(
-            torch, name, "lpc_allorder_kernel", k_la.lpc_allorder,
-            k_la.lpc_allorder_plain, args, exact,
-            [(x.numel() * p * (p + 1) // 2, INT32_MAD_PER_S)],
-            csrc + "lpc_allorder.cu", "flacx/kernels/lpcres_tile.py:612")
+            torch, name, f"lpc_allorder_kernel<{str(wide).lower()}>",
+            k_la.lpc_allorder, k_la.lpc_allorder_plain, args, exact,
+            [(work, INT32_MAD_PER_S)], csrc + "lpc_allorder.cu",
+            "flacx/kernels/lpcres_tile.py:612" + (
+                " + flacx/encoder.py:432-438 (its int64 XLA route)"
+                if wide else ""))
     if wrapper == "rice_stats":
         zz, _, porders, kmax = args
         levels = k_rs.route(max(porders), kmax) == "levels"
@@ -384,6 +400,7 @@ def launch_counts() -> dict:
         "analysis": analysis.analysis,
         "lpc_residual_stats": lpc_residual.lpc_residual_stats,
         "lpc_residual_zz": lpc_residual.lpc_residual_zz,
+        "lpc_residual_res": lpc_residual.lpc_residual_res,
         "lpc_allorder": lpc_allorder.lpc_allorder,
         "rice_stats": rice_stats.rice_stats,
         "frame_pack": frame_pack.frame_pack,
@@ -489,9 +506,8 @@ def headline_phase(torch, pcm: np.ndarray) -> list[dict]:
     del captured
 
     t0 = time.perf_counter()
-    frames, counts = counted_run(
-        lambda: enc.encode_frames(planar, 0),
-        [k for k in launch_counts() if k != "lpc_allorder"])
+    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                 HEADLINE_SPIES)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     print(f"main path launches {counts}", flush=True)
@@ -757,6 +773,351 @@ def hires_phase(torch, label: str) -> list[dict]:
     return rows
 
 
+#: the file phase: a CD rip (3 minutes of 16-bit stereo at 44.1 kHz) and a
+#: 24-bit stereo master (60 s at 48 kHz), the CLI's default --batch-frames
+CD_RATE, CD_SECONDS = 44100, 180
+MASTER_RATE, MASTER_SECONDS = 48000, 60
+EXCERPT_SECONDS = 20
+FILE_BATCH = 256
+FILE_DECODE = 16
+RES_PATH = ("analysis", "lpc_residual_res", "lpc_residual_zz", "rice_stats",
+            "frame_pack")
+#: label -> (input, CLI flags, kernels its encode must launch)
+FILE_RUNS = {
+    "default": ("cd", (), HEADLINE_SPIES),
+    "b1152": ("cd", ("-b", "1152"), RES_PATH),
+    "best": ("master", ("--best",), BEST_PATH),
+}
+
+
+def file_inputs() -> dict:
+    """The file phase's PCM, interleaved ``[samples, 2]`` int32, with its
+    rate and width: the headline's two-tone signal, and for the master
+    that signal at 48 kHz times 256, clipped to 24 bits."""
+    rng = np.random.default_rng(SEED + 2)
+    cd = synth_pcm(rng, CD_RATE * CD_SECONDS)
+    master = np.clip(synth_pcm(rng, MASTER_RATE * MASTER_SECONDS)
+                     .astype(np.int64) * 256, -(1 << 23), (1 << 23) - 1)
+    return {"cd": (cd, CD_RATE, 16),
+            "master": (master.astype(np.int32), MASTER_RATE, 24)}
+
+
+def frame_starts(data: bytes, first: int, n: int, samples: int,
+                 ) -> np.ndarray:
+    """Byte offsets of the frames of a fixed-blocksize stream of
+    ``samples`` samples a channel in blocks of ``n`` whose first frame
+    starts at ``first``: each the next sync code whose header parses, with
+    a valid CRC-8, as the next frame's (its number, its block size, rate
+    and width from STREAMINFO, as this encoder writes them).  Random
+    residual bytes pass that now and then; a false start would fail the
+    CRC-16 check, not pass it."""
+    from flacx_torch.bitio import BitReader
+    from flacx_torch.oracle.decoder import read_frame_header
+
+    d = np.frombuffer(data, np.uint8)
+    cand = np.nonzero((d[:-1] == 0xFF) & (d[1:] == 0xF8))[0]
+    cand = iter(cand[cand >= first].tolist())
+    count = -(-samples // n)
+    starts = []
+    for k in range(count):
+        want = (k, min(n, samples - k * n), None, None)
+        for c in cand:
+            try:
+                h = read_frame_header(BitReader(data[c:c + 16]))
+            except (ValueError, EOFError):
+                continue
+            if (h.coded_number, h.block_size, h.sample_rate,
+                    h.sample_size) == want:
+                starts.append(c)
+                break
+        else:
+            raise AssertionError(f"frame {k} of {count} not found")
+    if starts[0] != first:
+        raise AssertionError(f"first frame at {starts[0]}, not {first}")
+    return np.asarray(starts)
+
+
+def crc16_ok(data: bytes, starts: np.ndarray) -> None:
+    """Every frame's CRC-16 holds: the CRC of a frame with its stored CRC
+    appended is 0 (rows of frames advance together, a column a byte)."""
+    from flacx_torch.crc import crc_table
+    from flacx_torch.format import CRC16_POLYNOMIAL
+
+    table = crc_table(16, CRC16_POLYNOMIAL).astype(np.int64)
+    d = np.frombuffer(data, np.uint8)
+    ends = np.append(starts[1:], len(d))
+    for a in range(0, len(starts), 512):
+        s, e = starts[a:a + 512], ends[a:a + 512]
+        crc = np.zeros(len(s), np.int64)
+        for j in range(int((e - s).max())):
+            on = s + j < e
+            byte = d[np.minimum(s + j, len(d) - 1)]
+            nxt = table[(crc >> 8) ^ byte] ^ ((crc << 8) & 0xFFFF)
+            crc = np.where(on, nxt, crc)
+        bad = np.nonzero(crc)[0]
+        if len(bad):
+            raise AssertionError(f"frame {a + bad[0]}: CRC-16 mismatch")
+
+
+def check_flac(data: bytes, pcm: np.ndarray, rate: int, bps: int,
+               blocks: tuple, what: str) -> dict:
+    """STREAMINFO's sample count, block size (one of ``blocks``), min/max
+    frame sizes and MD5 are right; every frame's CRC-8 and CRC-16 hold;
+    :data:`FILE_DECODE` frames drawn from the seed and the last frame
+    decode bit-exactly.  Returns the block size, frame count and sizes."""
+    import hashlib
+
+    from flacx_torch.bitio import BitReader
+    from flacx_torch.format import MetadataBlockType
+    from flacx_torch.oracle.decoder import (read_frame, read_metadata_header,
+                                            read_streaminfo)
+    from flacx_torch.wavio import pcm_to_le_bytes
+
+    r = BitReader(data)
+    head = r.read_bytes(4)
+    meta = read_metadata_header(r)
+    si = read_streaminfo(r)
+    n = si.min_block_size
+    want = (b"fLaC", True, MetadataBlockType.Streaminfo, 34, n, rate, 2, bps,
+            len(pcm))
+    got = (head, meta.last, meta.type, meta.length, si.max_block_size,
+           si.sample_rate, si.channels, si.sample_size, si.samples)
+    if got != want or n not in blocks:
+        raise AssertionError(f"{what}: STREAMINFO {si}")
+    if si.md5 != hashlib.md5(pcm_to_le_bytes(pcm, bps)).digest():
+        raise AssertionError(f"{what}: STREAMINFO MD5 is not the PCM's")
+    count = -(-len(pcm) // n)
+    starts = frame_starts(data, 42, n, len(pcm))
+    sizes = np.diff(np.append(starts, len(data)))
+    if (si.min_frame_size, si.max_frame_size) != (sizes.min(), sizes.max()):
+        raise AssertionError(f"{what}: frame sizes {sizes.min()}.."
+                             f"{sizes.max()}, STREAMINFO {si}")
+    crc16_ok(data, starts)
+    rng = np.random.default_rng(SEED + len(pcm))
+    pick = sorted(set(rng.choice(count - 1, FILE_DECODE, replace=False)
+                      .tolist()) | {count - 1})
+    for i in pick:
+        _, planes = read_frame(data[starts[i]:starts[i] + sizes[i]], bps)
+        if not np.array_equal(np.asarray(planes).T, pcm[i * n:(i + 1) * n]):
+            raise AssertionError(f"{what} frame {i} does not decode "
+                                 "bit-exactly")
+    return {"block": n, "frames": count, "starts": starts, "sizes": sizes}
+
+
+def same_file(card: bytes, cpu: bytes, bps: int, what: str) -> int:
+    """The card's and the CPU's files of one input are byte-equal wherever
+    both chose the same coefficients: returns the frames that chose
+    others (STREAMINFO may differ only in its frame sizes then)."""
+    from flacx_torch.oracle.decoder import read_frame
+
+    if card == cpu:
+        return 0
+    # STREAMINFO at bytes 8..41: block sizes, frame sizes (12..17), then
+    # rate, channels, width, sample count and MD5
+    if card[:12] != cpu[:12] or card[18:42] != cpu[18:42]:
+        raise AssertionError(f"{what}: STREAMINFO differs beyond frame sizes")
+    n = int.from_bytes(card[8:10], "big")
+    samples = int.from_bytes(card[18:26], "big") & ((1 << 36) - 1)
+    spans = []
+    for data in (card, cpu):
+        starts = frame_starts(data, 42, n, samples)
+        spans.append(list(zip(starts, np.append(starts[1:], len(data)))))
+    differ = 0
+    for i, ((a0, a1), (b0, b1)) in enumerate(zip(*spans)):
+        fa, fb = card[a0:a1], cpu[b0:b1]
+        if fa != fb:
+            if subframe_params(read_frame(fa, bps)[0]) == subframe_params(
+                    read_frame(fb, bps)[0]):
+                raise AssertionError(f"{what} frame {i}: same coefficients "
+                                     "on cuda and cpu but different bytes")
+            differ += 1
+    return differ
+
+
+def file_phase(torch) -> list[dict]:
+    """``python -m flacx_torch encode`` in process on the card, on WAV
+    files written from the seed: the CD rip at the defaults and at
+    ``-b 1152`` (where the estimate search writes the chosen residual,
+    ``lpc_residual`` res mode), the 24-bit master with ``--best`` (the
+    wide ``lpc_allorder`` at each block size).  Each encode is counted
+    and its file checked (:func:`check_flac`); a 20 s excerpt of each is
+    encoded on the card and with ``--device cpu``.  The new kernel modes
+    are held against their plain versions at their path's shapes, and
+    the two routes of the ``-b 1152`` estimate batch are timed."""
+    import tempfile
+    from pathlib import Path
+
+    import flacx_torch.ops.emit as emit
+    from flacx_torch import cli, pipeline
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+    from flacx_torch.kernels import lpc_residual as k_lr
+    from flacx_torch.wavio import write_wav
+
+    inputs = file_inputs()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = {}
+        for key, (pcm, rate, bps) in inputs.items():
+            wavs[key] = Path(tmp, f"{key}.wav")
+            write_wav(wavs[key], rate, bps, pcm)
+            wavs[key + "-excerpt"] = Path(tmp, f"{key}-excerpt.wav")
+            write_wav(wavs[key + "-excerpt"], rate, bps,
+                      pcm[:EXCERPT_SECONDS * rate])
+        out = Path(tmp, "out.flac")
+
+        def encode(wav, flags, device="cuda"):
+            cli.main(["encode", "--device", device, *flags, str(wav),
+                      str(out)])
+            return out.read_bytes()
+
+        oracle_s = []
+        oracle_frame = pipeline._oracle_frame
+
+        def timed_oracle(*args):
+            t0 = time.perf_counter()
+            try:
+                return oracle_frame(*args)
+            finally:
+                oracle_s.append(time.perf_counter() - t0)
+
+        per_block = {}
+        encode_to_file = pipeline.encode_to_file
+
+        def counted_blocks(f, pcm, **kw):
+            before = dict((k, w.launches) for k, w in launch_counts().items())
+            stats = encode_to_file(f, pcm, **kw)
+            per_block[kw["block_size"]] = {
+                k: w.launches - before[k] for k, w in launch_counts().items()}
+            return stats
+
+        captured, launched = {}, {}
+        for label, (key, flags, needed) in FILE_RUNS.items():
+            pcm, rate, bps = inputs[key]
+            spies, restore = capture_main_path_inputs(
+                ("lpc_residual_res", "lpc_residual_zz", "lpc_allorder"),
+                per_block=True)
+            pipeline._oracle_frame = timed_oracle
+            pipeline.encode_to_file = counted_blocks
+            oracle_s.clear()
+            per_block.clear()
+            try:
+                t0 = time.perf_counter()
+                data, counts = counted_run(lambda: encode(wavs[key], flags),
+                                           needed)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                restore()
+                pipeline._oracle_frame = oracle_frame
+                pipeline.encode_to_file = encode_to_file
+            captured[label] = spies
+            blocks = BEST_BLOCKS if label == "best" else (
+                int(flags[1]) if flags else N,)
+            info = check_flac(data, pcm, rate, bps, blocks, label)
+            tails = sum(len(pcm) % b != 0 for b in blocks)
+            if len(oracle_s) != tails:
+                raise AssertionError(f"{label}: {len(oracle_s)} oracle "
+                                     f"frames, expected {tails} (the tails)")
+            batches = {b: -(-(len(pcm) // b) // FILE_BATCH) for b in blocks}
+            launched[label] = (counts, dict(per_block), batches)
+            if label == "b1152":
+                if (counts["lpc_residual_res"] != batches[1152]
+                        or counts["lpc_residual_stats"]):
+                    raise AssertionError(f"b1152: launches {counts}, "
+                                         f"{batches[1152]} batches")
+            if label == "best":
+                cfg = EncoderConfig(bps=24, sample_rate=MASTER_RATE,
+                                    order_search="exact",
+                                    windows=BEST_WINDOWS)
+                if k_lr.mac_width(cfg.eff_bps, cfg.sum_taps_max) != "wide":
+                    raise AssertionError("best: not the wide MAC")
+                for b in blocks:
+                    if per_block[b]["lpc_allorder"] != 3 * batches[b]:
+                        raise AssertionError(f"best {b}: launches "
+                                             f"{per_block[b]}")
+            seconds = len(pcm) / rate
+            total = int(info["sizes"].sum())
+            print(f"file {label} ({seconds:.0f} s of {bps}-bit stereo at "
+                  f"{rate} Hz, flags {' '.join(flags) or '(defaults)'}): "
+                  f"wall {wall:.3f} s, {seconds / wall:.1f}x realtime, "
+                  f"{len(pcm) / wall:.1f} samples/s a channel; oracle tail "
+                  f"{sum(oracle_s):.3f} s ({sum(oracle_s) / wall:.3f} of the "
+                  f"wall); block {info['block']}, {info['frames']} frames, "
+                  f"{total} frame bytes, ratio "
+                  f"{total / (pcm.size * bps // 8):.4f}; launches {counts}"
+                  + (f" by block {per_block}" if label == "best" else "")
+                  + f"; batches {batches}; STREAMINFO, MD5, every CRC-8 and "
+                  f"CRC-16 right, {FILE_DECODE} sampled frames and the last "
+                  "decoded bit-exact", flush=True)
+
+            excerpt = wavs[key + "-excerpt"]
+            t0 = time.perf_counter()
+            card = encode(excerpt, flags)
+            t1 = time.perf_counter()
+            cpu = encode(excerpt, flags, "cpu")
+            differ = same_file(card, cpu, bps, f"{label} excerpt")
+            print(f"file {label}: {EXCERPT_SECONDS} s excerpt, card "
+                  f"{t1 - t0:.3f} s, cpu {time.perf_counter() - t1:.3f} s; "
+                  f"files {'byte-equal' if card == cpu else 'differ'} "
+                  f"({differ} frames chose other coefficients)", flush=True)
+
+    res_args = captured["b1152"][("lpc_residual_res", 1152)]
+    zz_fix_args = captured["b1152"][("lpc_residual_zz", 1152)]
+    assert res_args[0].shape == (FILE_BATCH, 4, 1152), res_args[0].shape
+    assert zz_fix_args[1].shape[-1] == 4
+    counts, per_block, batches = launched["b1152"]
+    rows.append(hold(torch, "lpc_residual_res@1152", "lpc_residual_res",
+                     res_args))
+    rows[-1]["launches"] = counts["lpc_residual_res"]
+    rows[-1]["batches"] = batches[1152]
+    counts, per_block, batches = launched["best"]
+    for b in BEST_BLOCKS:
+        args = captured["best"][("lpc_allorder", b)]
+        assert args[0].shape == (FILE_BATCH, 4, b) and args[1].shape[-2] == 12
+        rows.append(hold(torch, f"lpc_allorder_wide@{b}", "lpc_allorder",
+                         args))
+        rows[-1]["launches"] = per_block[b]["lpc_allorder"]
+        rows[-1]["batches"] = batches[b]
+    # rows that share a kernel symbol are timed in separate traces
+    time_rows(torch, rows[:2])
+    for row in rows[2:]:
+        time_rows(torch, [row])
+
+    # the -b 1152 estimate batch on its other route: the chosen order's
+    # stats (stats mode) and the merged taps' residual (zz mode), as where
+    # the JAX package's tiled emit applies; the same frames either way
+    cfg = EncoderConfig(block_size=1152)
+    enc = BatchEncoder(cfg, batch_frames=FILE_BATCH)
+    planar = blocks_of(inputs["cd"][0][:FILE_BATCH * 1152], 1152)
+    keep = enc.encode_batch_device(planar, 0)
+    spies, restore = capture_main_path_inputs(("lpc_residual_stats",
+                                               "lpc_residual_zz"))
+    tile_layout_ok = emit.tile_layout_ok
+    emit.tile_layout_ok = lambda n, psize_min: True
+    try:
+        other = enc.encode_batch_device(planar, 0)
+    finally:
+        emit.tile_layout_ok = tile_layout_ok
+        restore()
+    if not (torch.equal(keep["length"], other["length"])
+            and torch.equal(keep["bytes"], other["bytes"])):
+        raise AssertionError("b1152: the two residual routes differ")
+    k_res = {"lpc_residual_kernel<2, false>":
+             lambda: k_lr.lpc_residual_res(*res_args),
+             "lpc_residual_kernel<1, false>":
+             lambda: k_lr.lpc_residual_zz(*zz_fix_args)}
+    k_old = {"lpc_residual_kernel<0, false>":
+             lambda: k_lr.lpc_residual_stats(*spies["lpc_residual_stats"]),
+             "lpc_residual_kernel<1, false>":
+             lambda: k_lr.lpc_residual_zz(*spies["lpc_residual_zz"])}
+    t_res, t_old = kernel_times(torch, k_res, 20), kernel_times(torch, k_old,
+                                                                20)
+    print(f"file b1152 routes, one {FILE_BATCH}-frame batch, device ms: res "
+          f"mode {sum(t_res.values()):.4f} ({t_res}) against stats + zz "
+          f"{sum(t_old.values()):.4f} ({t_old}); the same frames", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -777,6 +1138,7 @@ def main() -> int:
     wasted_phase(pcm)
     for label in HIRES:
         rows += hires_phase(torch, label)
+    rows += file_phase(torch)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

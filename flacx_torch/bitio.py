@@ -1,6 +1,8 @@
-"""Host-side MSB-first bit reader (used by the oracle decoder).
+"""Host-side MSB-first bit I/O (the oracle codec and STREAMINFO).
 
-Services requests from a refillable integer window over the buffer.
+The writer keeps one unbounded integer accumulator and flushes whole bytes
+lazily; the reader services requests from a refillable integer window
+over the buffer.
 """
 
 from __future__ import annotations
@@ -13,6 +15,60 @@ def mask(n: int) -> int:
     ('0b0', '0b111')
     """
     return (1 << n) - 1
+
+
+class BitWriter:
+    """MSB-first bit accumulator producing ``bytes``.
+
+    >>> w = BitWriter(); w.write_uint(0b101, 3); w.write_unary(2)
+    >>> w.pad_to_byte(); w.getvalue()
+    b'\\xa4'
+    """
+
+    def __init__(self) -> None:
+        self._out = bytearray()
+        self._acc = 0        # pending bits, MSB-first, value < 2**_nbits
+        self._nbits = 0      # number of pending bits (< 8 after a write)
+
+    @property
+    def bits_until_alignment(self) -> int:
+        return (-self._nbits) % 8
+
+    def write_uint(self, value: int, nbits: int) -> None:
+        """Append the low ``nbits`` bits of ``value`` (two's complement for
+        negatives), most significant bit first."""
+        if nbits == 0:
+            return
+        self._acc = (self._acc << nbits) | (value & mask(nbits))
+        self._nbits += nbits
+        if self._nbits >= 8:
+            whole, rem = divmod(self._nbits, 8)
+            self._out += (self._acc >> rem).to_bytes(whole, "big")
+            self._acc &= mask(rem)
+            self._nbits = rem
+
+    def write_sint(self, value: int, nbits: int) -> None:
+        self.write_uint(value, nbits)
+
+    def write_bool(self, value: bool) -> None:
+        self.write_uint(1 if value else 0, 1)
+
+    def write_bytes(self, data: bytes) -> None:
+        if self._nbits:
+            raise ValueError("byte write requires alignment")
+        self._out += data
+
+    def write_unary(self, q: int) -> None:
+        """``q`` zero bits followed by a one bit (FLAC unary)."""
+        self.write_uint(1, q + 1)
+
+    def pad_to_byte(self) -> None:
+        self.write_uint(0, self.bits_until_alignment)
+
+    def getvalue(self) -> bytes:
+        if self._nbits:
+            raise ValueError("bitstream not byte-aligned")
+        return bytes(self._out)
 
 
 class BitReader:

@@ -8,19 +8,20 @@ pipeline on the device:
   quantization of every order → [exact search: every order's residual
   statistics, ``lpc_allorder`` kernel] → window merge → order choice
   (estimate search: the chosen order's statistics, ``lpc_residual``
-  kernel in stats mode) → stereo mode choice (exact search: on every
-  virtual channel's exact Rice plan) → chosen zigzag residual
-  (``lpc_residual`` in zz mode) → exact Rice search (``rice_stats`` kernel
-  + plan) → emit, pack and CRC-16 (``frame_pack`` kernel)
+  kernel in stats mode, or in res mode, which also writes the residual,
+  where the JAX package's tiled emit does not apply) → stereo mode choice
+  (exact search: on every virtual channel's exact Rice plan) → chosen
+  zigzag residual (``lpc_residual`` in zz mode) → exact Rice search
+  (``rice_stats`` kernel + plan) → emit, pack and CRC-16 (``frame_pack``
+  kernel)
 
 yielding complete, CRC'd FLAC frames as byte rows.  On the CPU every
 kernel is replaced by its plain PyTorch version.
 
 Both order searches, f32 and f64 analysis, any number of windows and
 wasted bits are covered up to 24-bit samples, every partition order and
-frame size; the exact order search only under the single-int32 MAC.
-Other configurations raise ``NotImplementedError`` naming the slice that
-will bring them.
+frame size.  Other configurations raise ``NotImplementedError`` naming the
+slice that will bring them.
 """
 
 from __future__ import annotations
@@ -37,14 +38,15 @@ from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
                                 Channels)
 from flacx_torch.kernels.analysis import analysis
 from flacx_torch.kernels.lpc_allorder import lpc_allorder
-from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
+from flacx_torch.kernels.lpc_residual import (lpc_residual_res,
+                                              lpc_residual_stats,
                                               lpc_residual_zz)
 from flacx_torch.kernels.rice_stats import rice_stats
 from flacx_torch.ops import emit, rice
 from flacx_torch.ops.framepack import pack_frames
 from flacx_torch.ops.headers import frame_header_symbols
-from flacx_torch.ops.lpc import (apodization_window_np, levinson_all_orders,
-                                 mac_int32_ok, merge_windows,
+from flacx_torch.ops.lpc import (apodization_window_np, fused_int32_ok,
+                                 levinson_all_orders, merge_windows,
                                  quantize_all_orders, window_candidates,
                                  window_from_numpy)
 
@@ -183,10 +185,6 @@ def check_supported(cfg: EncoderConfig) -> None:
     if cfg.bps > 24:
         later.append(f"bps {cfg.bps} > 24, whose residuals need an int64 "
                      "working type (bps 25..32 slice)")
-    elif (cfg.order_search == "exact" and cfg.max_lpc_order
-          and not mac_int32_ok(cfg.eff_bps, cfg.sum_taps_max)):
-        later.append("order_search='exact' past the int32 MAC bound "
-                     "(lpc_allorder's wide MAC slice)")
     if later:
         raise NotImplementedError("flacx_torch does not encode yet: "
                                   + "; ".join(later))
@@ -289,6 +287,10 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     lorders = ar(1, p + 1)
     lcounts = n - lorders
     sum_taps_max = cfg.sum_taps_max
+    psize_min = n >> max(cfg.porders)
+    keep_res = (not exact and p > 0
+                and not emit.tile_layout_ok(n, psize_min)
+                and fused_int32_ok(cfg.eff_bps, sum_taps_max))
     best = None
     fzz_sum = None
     for name, window in zip(cfg.windows, windows):
@@ -335,6 +337,13 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
             # every order's exact statistics exist: take the chosen one's
             lzz_exact = best.lzz.gather(-1, lo0[..., None])[..., 0]
             lpc_maxabs = best.maxabs.gather(-1, lo0[..., None])[..., 0]
+        elif keep_res:
+            # the JAX package writes the chosen residual with its stats
+            # here and emits it, rather than recompute it (its tiled emit
+            # does not apply)
+            lpc_res_v, lzz_exact, lpc_maxabs = lpc_residual_res(
+                x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
+                lpc_order, cfg.eff_bps, sum_taps_max)
         else:
             # cross-family comparison on EXACT magnitude sums (the
             # Levinson error is optimistic about post-quantization
@@ -362,9 +371,9 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
 
     # each virtual channel's chosen taps, merged across the two families
     # and padded to max_taps
-    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)   # [5, 4]
-    taps_fix = torch.nn.functional.pad(taps_fix4[fixed_order.long()],
-                                       (0, t - 4))
+    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)[
+        fixed_order.long()]                                      # [B, V, 4]
+    taps_fix = torch.nn.functional.pad(taps_fix4, (0, t - 4))
     taps_lpc = torch.nn.functional.pad(taps_lpc_v,
                                        (0, t - taps_lpc_v.shape[-1]))
     taps_v = torch.where(pred_is_lpc[..., None], taps_lpc, taps_fix) \
@@ -375,17 +384,23 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     const_bits = torch.where(const_ok, 8 + bps_v, _INF)
     verb_bits = 8 + n * bps_v
 
-    def residual_plan(x, taps, shift, order):
-        """The zigzag residual of the chosen taps and its exact Rice
-        plan."""
+    def residual_zz(x, taps, shift, order, taps_max):
+        """The zigzag residual of the chosen taps (``taps_max`` bounds
+        their Σ|taps|)."""
+        return lpc_residual_zz(x, taps.contiguous(), shift.contiguous(),
+                               order.contiguous(), cfg.eff_bps, taps_max)
+
+    def rice_plan(zz, order):
+        """The exact Rice plan of a zigzag residual."""
         order = order.contiguous()
-        zz = lpc_residual_zz(x, taps.contiguous(), shift.contiguous(), order,
-                             cfg.eff_bps, max(sum_taps_max, 15))
-        stats = rice_stats(zz, order, cfg.porders, kmax)
-        return zz, rice.exact_plan(zz, order, cfg.porders,
-                                   cfg.preferred_porders, kmax,
-                                   allow_escape=cfg.escapes,
-                                   kernel_stats=stats)
+        return rice.exact_plan(zz, order, cfg.porders, cfg.preferred_porders,
+                               kmax, allow_escape=cfg.escapes,
+                               kernel_stats=rice_stats(zz, order, cfg.porders,
+                                                       kmax))
+
+    def residual_plan(x, taps, shift, order):
+        zz = residual_zz(x, taps, shift, order, max(sum_taps_max, 15))
+        return zz, rice_plan(zz, order)
 
     # exact mode ranks the stereo modes by the exact Rice plan of every
     # virtual channel; the plan of the winning pair is then emitted
@@ -426,7 +441,15 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     shift = gather_v(shift_v).contiguous()
 
     # ----- chosen residual and its exact Rice plan ------------------------
-    if plan_v is None:
+    if keep_res:
+        # LPC rows from the written residual, fixed rows from the fixed
+        # taps (Σ|taps| ≤ 15); both are zero at i < order
+        zz_fix = residual_zz(x_sel, gather_v(taps_fix4),
+                             torch.zeros_like(shift), order, 15)
+        zz = torch.where(is_lpc[..., None],
+                         rice.zigzag(gather_v(lpc_res_v)), zz_fix)
+        plan = rice_plan(zz, order)
+    elif plan_v is None:
         zz, plan = residual_plan(x_sel, taps, shift, order)
     else:
         zz = gather_v(zz_v)
@@ -449,7 +472,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     hdr = frame_header_symbols(first_index + ar(b), ch_code, n)
     frame_bytes, length = pack_frames(
         hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift, prec,
-        zz, plan, n >> max(cfg.porders), cfg.max_frame_bytes,
+        zz, plan, psize_min, cfg.max_frame_bytes,
         wasted=gather_v(w_v))
     return {"bytes": frame_bytes, "length": length, "kind": kind,
             "channel_code": ch_code, "subframe_bits": sub_bits}

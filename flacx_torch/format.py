@@ -1,7 +1,8 @@
 """The parts of the FLAC stream grammar the port uses, as data.
 
 Own copy of the matching definitions in the JAX package's ``format``
-module (RFC 9639 values); the port imports nothing of that package.
+module (RFC 9639 values), with the records and header-field encoders of
+the oracle encoder; the port imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ FIXED_PREDICTOR_TAPS = np.array(
     [list(c) + [0] * (4 - len(c)) for c in FIXED_PREDICTOR_COEFFICIENTS],
     dtype=np.int32,
 )
+
+#: Largest Rice parameter expressible by the 5-bit coding method (31=escape).
+MAX_RICE_PARAMETER = 30
 
 
 class MetadataBlockType(enum.IntEnum):
@@ -147,6 +151,27 @@ class Frame:
     subframes: tuple[Subframe, ...]
     crc: int = 0
 
+
+class RiceCodingMethod(enum.IntEnum):
+    """Value == parameter field width."""
+    Rice4Bit = 4
+    Rice5Bit = 5
+
+
+@dataclass(frozen=True)
+class RicePartition:
+    parameter: int                  # escape if parameter == (1<<width)-1
+    escaped_size: int = 0           # bits per raw sample when escaped
+    residual: tuple[int, ...] = ()  # signed residual values
+
+
+@dataclass(frozen=True)
+class Residual:
+    coding_method: RiceCodingMethod
+    partition_order: int
+    partitions: tuple[RicePartition, ...]
+
+
 #: 4-bit encodings for common block sizes.
 BLOCK_SIZE_ENCODING: dict[int, int] = {
     192: 0b0001,
@@ -163,6 +188,9 @@ SAMPLE_RATE_ENCODING: dict[int, int] = {
     32_000: 0b1000, 44_100: 0b1001, 48_000: 0b1010, 96_000: 0b1011,
 }
 SAMPLE_RATE_FROM_STREAMINFO = 0b0000
+SAMPLE_RATE_UNCOMMON8_KHZ = 0b1100   # + 8 bits, rate in kHz
+SAMPLE_RATE_UNCOMMON16_HZ = 0b1101   # + 16 bits, rate in Hz
+SAMPLE_RATE_UNCOMMON16_DAHZ = 0b1110  # + 16 bits, rate in tens of Hz
 SAMPLE_RATE_DECODING = {v: k for k, v in SAMPLE_RATE_ENCODING.items()}
 
 SAMPLE_SIZE_ENCODING: dict[int, int] = {
@@ -185,3 +213,31 @@ def encode_block_size_bits(size: int) -> tuple[int, int, int]:
     if size <= 65536:
         return BLOCK_SIZE_UNCOMMON16, 16, size - 1
     raise ValueError(f"cannot encode block size {size}")
+
+
+def encode_sample_rate_bits(sample_rate: Optional[int],
+                            ) -> tuple[int, int, int]:
+    """Return ``(code4, extra_bits, extra_value)`` for the sample-rate
+    field; ``None`` means "read from streaminfo"."""
+    if sample_rate is None:
+        return SAMPLE_RATE_FROM_STREAMINFO, 0, 0
+    code = SAMPLE_RATE_ENCODING.get(sample_rate)
+    if code is not None:
+        return code, 0, 0
+    if sample_rate < 65536:
+        return SAMPLE_RATE_UNCOMMON16_HZ, 16, sample_rate
+    if sample_rate % 1000 == 0 and sample_rate // 1000 < 256:
+        return SAMPLE_RATE_UNCOMMON8_KHZ, 8, sample_rate // 1000
+    if sample_rate % 10 == 0 and sample_rate // 10 < 65536:
+        return SAMPLE_RATE_UNCOMMON16_DAHZ, 16, sample_rate // 10
+    raise ValueError(f"cannot encode sample rate {sample_rate}")
+
+
+def encode_sample_size_bits(size: Optional[int]) -> int:
+    """3-bit sample-size field; ``None`` = from streaminfo."""
+    if size is None:
+        return SAMPLE_SIZE_FROM_STREAMINFO
+    code = SAMPLE_SIZE_ENCODING.get(size)
+    if code is None:
+        raise ValueError(f"cannot encode sample size {size}")
+    return code

@@ -7,17 +7,29 @@
 // (flacx_torch.kernels.lpc_allorder.lpc_allorder_plain: lpc_residuals_all,
 // warmup mask, reduce).  The exact order search ranks every order by these.
 //
-// Replaces the TPU kernel flacx/kernels/lpcres_tile.py::lpc_allorder_stats.
+// Replaces the TPU kernel flacx/kernels/lpcres_tile.py::lpc_allorder_stats,
+// and the JAX package's int64 XLA route of the same statistics past its
+// int32 gate (flacx/encoder.py:432-438: lpc_residuals_all in int64, then
+// the zigzag sums).
 //
-// The MAC is int32, in unsigned (wrap-defined) arithmetic with an
-// arithmetic shift: exact under the static bound
-// eff_bps + 1 + bitlen(sum |taps|) <= 31, which the Python wrapper checks.
+// Two MAC widths, chosen by the wrapper from the static bound
+// eff_bps + 1 + bitlen(sum |taps|) <= 31:
+//   int32: under the bound, in unsigned (wrap-defined) arithmetic with an
+//          arithmetic shift; exact.
+//   wide:  past it (24-bit stereo: eff_bps 25), an int64 accumulator, one
+//          IMAD.WIDE per tap.  |x| < 2^31 and at most 32 taps of precision
+//          <= 15 give |sum| < 2^50, so every order's res, its zigzag and
+//          the sums are exact int64 values on every lane, those with
+//          |res| >= 2^31 included (the order ranking and the window merge
+//          read every order's sum); max |res| clamps to 2^31 - 1.
 //
 // Bound on the card: operations.  Order o costs o multiply-adds per
 // sample, sum_{o<=P} o = P(P+1)/2 in all (78 at P = 12).  At 1024 frames x
 // 4 virtual channels x 4608 samples that is 1.47e9 int32 multiply-adds per
 // window, 0.088 ms at 64 per clock per SM (132 SMs, 1.98 GHz), against
-// 75.5 MB of samples read, 0.023 ms at 3.35 TB/s.
+// 75.5 MB of samples read, 0.023 ms at 3.35 TB/s.  The wide MAC's
+// IMAD.WIDE counts as two: 256 x 4 x 4608 samples at P = 12 (the file
+// encode's --best batch at 24 bits) is 0.044 ms per window.
 //
 // Design: one block per row.  The row streams through shared memory in
 // tiles of TILE samples with a halo of 32 previous samples (zero before the
@@ -30,8 +42,9 @@
 // at compile time: orders 1..12 in one pass (the main path), then passes
 // of four orders up to 32, so the per-order sums, the sample window and
 // the taps the compiler keeps in registers stay within the register file
-// (one pass over orders 1..32 spills).  Each later pass reads the row
-// again, from L2.
+// (one pass over orders 1..32 spills).  The wide MAC doubles the sums and
+// accumulators, so it runs every pass at four orders.  Each later pass
+// reads the row again, from L2.
 
 #include "common.cuh"
 
@@ -41,7 +54,8 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 1024;
 constexpr int HALO = 32;     // also the largest order
-constexpr int FIRST = 12;    // orders of the first pass; later ones take 4
+constexpr int FIRST = 12;    // orders of the first int32 pass; others take 4
+constexpr long long INT32_MAX_LL = 2147483647LL;
 
 struct Smem {
   int32_t xs[HALO + TILE];
@@ -52,8 +66,8 @@ struct Smem {
 };
 
 // Orders OLO+1 .. min(OHI, p) of one row: their sums and maxima written to
-// lzz / maxabs (the row's [p] slices).
-template <int OLO, int OHI>
+// lzz / maxabs (the row's [p] slices), in the MAC width of WIDE.
+template <bool WIDE, int OLO, int OHI>
 __device__ __forceinline__ void order_pass(Smem& sm, const int32_t* xr,
                                            long long* lzz, int32_t* maxabs,
                                            int n, int p) {
@@ -77,20 +91,34 @@ __device__ __forceinline__ void order_pass(Smem& sm, const int32_t* xr,
       const int i = t0 + j;
       const int c = HALO + j;
       const int32_t xi = sm.xs[c];
-      uint32_t xw[OHI];
+      int32_t xw[OHI];
 #pragma unroll
-      for (int k = 0; k < OHI; ++k) xw[k] = (uint32_t)sm.xs[c - 1 - k];
+      for (int k = 0; k < OHI; ++k) xw[k] = sm.xs[c - 1 - k];
 #pragma unroll
       for (int q = 0; q < K; ++q) {
         const int o = OLO + q;  // order o + 1
         if (o < p) {
-          uint32_t acc = 0;
+          if (WIDE) {
+            long long acc = 0;
 #pragma unroll
-          for (int k = 0; k <= o; ++k) acc += (uint32_t)sm.tp[o][k] * xw[k];
-          int32_t res = xi - ((int32_t)acc >> sm.sh[o]);
-          if (i <= o) res = 0;
-          s[q] += flacx::zigzag32(res);
-          m[q] = max(m[q], abs(res));
+            for (int k = 0; k <= o; ++k)
+              acc += (long long)sm.tp[o][k] * (long long)xw[k];
+            long long res = (long long)xi - (acc >> sm.sh[o]);
+            if (i <= o) res = 0;
+            s[q] += (long long)(((unsigned long long)res << 1) ^
+                                (unsigned long long)(res >> 63));
+            const long long a = res < 0 ? -res : res;
+            m[q] = max(m[q], (int)(a < INT32_MAX_LL ? a : INT32_MAX_LL));
+          } else {
+            uint32_t acc = 0;
+#pragma unroll
+            for (int k = 0; k <= o; ++k)
+              acc += (uint32_t)sm.tp[o][k] * (uint32_t)xw[k];
+            int32_t res = xi - ((int32_t)acc >> sm.sh[o]);
+            if (i <= o) res = 0;
+            s[q] += flacx::zigzag32(res);
+            m[q] = max(m[q], abs(res));
+          }
         }
       }
     }
@@ -123,6 +151,7 @@ __device__ __forceinline__ void order_pass(Smem& sm, const int32_t* xr,
   __syncthreads();  // red_* and xs are reused by the next pass
 }
 
+template <bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 lpc_allorder_kernel(const int32_t* __restrict__ x,
                     const int32_t* __restrict__ qcoefs,
@@ -145,26 +174,37 @@ lpc_allorder_kernel(const int32_t* __restrict__ x,
   const int32_t* xr = x + (size_t)row * n;
   long long* lz = lzz + (size_t)row * p;
   int32_t* mx = maxabs + (size_t)row * p;
-  order_pass<0, FIRST>(sm, xr, lz, mx, n, p);
-  if (p > 12) order_pass<12, 16>(sm, xr, lz, mx, n, p);
-  if (p > 16) order_pass<16, 20>(sm, xr, lz, mx, n, p);
-  if (p > 20) order_pass<20, 24>(sm, xr, lz, mx, n, p);
-  if (p > 24) order_pass<24, 28>(sm, xr, lz, mx, n, p);
-  if (p > 28) order_pass<28, 32>(sm, xr, lz, mx, n, p);
+  if (WIDE) {
+    order_pass<true, 0, 4>(sm, xr, lz, mx, n, p);
+    if (p > 4) order_pass<true, 4, 8>(sm, xr, lz, mx, n, p);
+    if (p > 8) order_pass<true, 8, 12>(sm, xr, lz, mx, n, p);
+  } else {
+    order_pass<false, 0, FIRST>(sm, xr, lz, mx, n, p);
+  }
+  if (p > 12) order_pass<WIDE, 12, 16>(sm, xr, lz, mx, n, p);
+  if (p > 16) order_pass<WIDE, 16, 20>(sm, xr, lz, mx, n, p);
+  if (p > 20) order_pass<WIDE, 20, 24>(sm, xr, lz, mx, n, p);
+  if (p > 24) order_pass<WIDE, 24, 28>(sm, xr, lz, mx, n, p);
+  if (p > 28) order_pass<WIDE, 28, 32>(sm, xr, lz, mx, n, p);
 }
 
 }  // namespace
 
 // x int32 [rows, n], qcoefs int32 [rows, p, t] (row o-1 is the order-o
 // predictor), shifts int32 [rows, p] -> lzz int64 [rows, p], maxabs int32
-// [rows, p].  Returns the CUDA error code of the launch.
+// [rows, p]; wide != 0 takes the int64 MAC.  Returns the CUDA error code
+// of the launch.
 FLACX_API int flacx_lpc_allorder(const int32_t* x, const int32_t* qcoefs,
                                  const int32_t* shifts, long long* lzz,
                                  int32_t* maxabs, int rows, int n, int p,
-                                 int t, cudaStream_t stream) {
+                                 int t, int wide, cudaStream_t stream) {
   if (rows <= 0 || n < 1 || p < 1 || p > HALO || t < 1 || t > HALO)
     return (int)cudaErrorInvalidValue;
-  lpc_allorder_kernel<<<rows, THREADS, 0, stream>>>(x, qcoefs, shifts, lzz,
-                                                    maxabs, n, p, t);
+  if (wide)
+    lpc_allorder_kernel<true><<<rows, THREADS, 0, stream>>>(
+        x, qcoefs, shifts, lzz, maxabs, n, p, t);
+  else
+    lpc_allorder_kernel<false><<<rows, THREADS, 0, stream>>>(
+        x, qcoefs, shifts, lzz, maxabs, n, p, t);
   return (int)cudaGetLastError();
 }

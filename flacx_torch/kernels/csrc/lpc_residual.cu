@@ -1,16 +1,20 @@
 // lpc_residual: the integer LPC residual
 //   res[i] = x[i] - ((sum_j taps[j] * x[i-1-j]) >> shift),  res[i < order] = 0
-// of every row, in one of two output modes:
+// of every row, in one of three output modes:
 //   stats: sum zigzag(res) (int64) and max |res| (int32, clamped to
 //          2^31 - 1); res is never written (the estimate-mode order
 //          search's exact statistics);
 //   zz:    zigzag((int32) res) written out as int32 (the chosen
 //          predictor's residual, ready for the Rice search and the
-//          emitter).
+//          emitter);
+//   res:   res written out as int32 together with the stats (the
+//          estimate search where the JAX package's tiled emit does not
+//          apply: the chosen LPC residual is kept, not recomputed).
 //
 // Replaces the TPU kernels flacx/kernels/lpcres_tile.py::lpc_residual_stats
 // (stats mode) and ::zigzag_residual_tiles (zz mode), including their
-// two-limb split MAC (lpcres_tile.py::_mac_rows, split=True).
+// two-limb split MAC (lpcres_tile.py::_mac_rows, split=True), and
+// ::lpc_residual_tiles (res mode).
 //
 // Two MAC widths, chosen by the wrapper from the static bound:
 //   int32: exact under eff_bps + 1 + bitlen(sum |taps|) <= 31; carried out
@@ -27,15 +31,19 @@
 //          encoder's int32 working type does: exact on every lane it
 //          emits (a chosen LPC residual has max |res| < 2^30; a fixed one
 //          has sum |taps| <= 15, so |res| <= 2^(eff_bps+3)).
+// The res mode runs the int32 MAC only: the JAX package reaches
+// lpc_residual_tiles only under its int32 gate (flacx/ops/lpc.py:342-343),
+// which the wrapper asserts.
 //
 // Bound on the card.  int32 MAC: bytes.  stats reads 4 B/sample (75.5 MB
-// at the headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz reads and
-// writes 4 B/sample each (1024 x 2 x 4608: 75.5 MB, 22.5 us); the at most
-// 12 multiply-adds per sample at order 12 are below that.  Wide MAC:
-// operations, one IMAD.WIDE (two int32 multiply-adds' worth at 64 per
-// clock per SM, 132 SMs, 1.98 GHz) per sample and nonzero tap: at most
-// 32 us for hi-res stats (128 x 4 x 16384 samples, every row at order
-// 32) against 10 us for its 33.6 MB.
+// at the headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz and res read
+// and write 4 B/sample each (zz at 1024 x 2 x 4608: 75.5 MB, 22.5 us; res
+// at 256 x 4 x 1152, the file encode at block 1152: 9.4 MB, 2.8 us); the
+// at most 12 multiply-adds per sample at order 12 are below that.  Wide
+// MAC: operations, one IMAD.WIDE (two int32 multiply-adds' worth at 64
+// per clock per SM, 132 SMs, 1.98 GHz) per sample and nonzero tap: at most
+// 32 us for hi-res stats (128 x 4 x 16384 samples, every row at order 32)
+// against 10 us for its 33.6 MB.
 //
 // Design: one block per row; the row streams through shared memory in
 // tiles with a 32-sample halo (zero before the row start, as the plain
@@ -54,6 +62,8 @@ constexpr int TILE = 1024;
 constexpr int HALO = 32;
 static_assert(HALO == 32, "the taps are loaded and scanned by warp 0");
 constexpr long long INT32_MAX_LL = 2147483647LL;
+// output modes (template argument of the kernel)
+constexpr int STATS = 0, ZZ = 1, RES = 2;
 
 // Sample c of the tile in the MAC width of the template: the residual
 // narrowed to int32, its zigzag as the stats sum adds it, and its |res|
@@ -86,14 +96,16 @@ __device__ __forceinline__ void residual(const int32_t* xs, const int32_t* tp,
   }
 }
 
-template <bool ZZ, bool WIDE>
+// MODE is STATS, ZZ or RES; `out` is the zz (ZZ) or res (RES) output.
+template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 lpc_residual_kernel(const int32_t* __restrict__ x,
                     const int32_t* __restrict__ taps,
                     const int32_t* __restrict__ shift,
                     const int32_t* __restrict__ order,
-                    int32_t* __restrict__ zz, long long* __restrict__ lzz,
+                    int32_t* __restrict__ out, long long* __restrict__ lzz,
                     int32_t* __restrict__ maxabs, int n, int ntaps) {
+  static_assert(MODE != RES || !WIDE, "res mode runs the int32 MAC only");
   constexpr int WARPS = THREADS / 32;
   __shared__ int32_t xs[HALO + TILE];
   __shared__ int32_t tp[HALO];
@@ -131,9 +143,9 @@ lpc_residual_kernel(const int32_t* __restrict__ x,
       int a;
       residual<WIDE>(xs, tp, HALO + j, nt, sh, res, z, a);
       if (i < ord) res = 0, z = 0, a = 0;
-      if (ZZ) {
-        zz[(size_t)row * n + i] = flacx::zigzag32(res);
-      } else {
+      if (MODE == ZZ) out[(size_t)row * n + i] = flacx::zigzag32(res);
+      if (MODE == RES) out[(size_t)row * n + i] = res;
+      if (MODE != ZZ) {
         s += z;
         mx = max(mx, a);
       }
@@ -141,7 +153,7 @@ lpc_residual_kernel(const int32_t* __restrict__ x,
     __syncthreads();
   }
 
-  if (!ZZ) {
+  if (MODE != ZZ) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     s = flacx::warp_sum(s);
     mx = flacx::warp_max(mx);
@@ -167,17 +179,17 @@ bool bad_args(int rows, int n, int ntaps) {
   return rows <= 0 || n < 1 || ntaps < 0 || ntaps > HALO;
 }
 
-template <bool ZZ>
+template <int MODE>
 void launch(const int32_t* x, const int32_t* taps, const int32_t* shift,
-            const int32_t* order, int32_t* zz, long long* lzz,
+            const int32_t* order, int32_t* out, long long* lzz,
             int32_t* maxabs, int rows, int n, int ntaps, int wide,
             cudaStream_t stream) {
   if (wide)
-    lpc_residual_kernel<ZZ, true><<<rows, THREADS, 0, stream>>>(
-        x, taps, shift, order, zz, lzz, maxabs, n, ntaps);
+    lpc_residual_kernel<MODE, true><<<rows, THREADS, 0, stream>>>(
+        x, taps, shift, order, out, lzz, maxabs, n, ntaps);
   else
-    lpc_residual_kernel<ZZ, false><<<rows, THREADS, 0, stream>>>(
-        x, taps, shift, order, zz, lzz, maxabs, n, ntaps);
+    lpc_residual_kernel<MODE, false><<<rows, THREADS, 0, stream>>>(
+        x, taps, shift, order, out, lzz, maxabs, n, ntaps);
 }
 
 }  // namespace
@@ -191,7 +203,7 @@ FLACX_API int flacx_lpc_residual_stats(const int32_t* x, const int32_t* taps,
                                        int ntaps, int wide,
                                        cudaStream_t stream) {
   if (bad_args(rows, n, ntaps)) return (int)cudaErrorInvalidValue;
-  launch<false>(x, taps, shift, order, nullptr, lzz, maxabs, rows, n, ntaps,
+  launch<STATS>(x, taps, shift, order, nullptr, lzz, maxabs, rows, n, ntaps,
                 wide, stream);
   return (int)cudaGetLastError();
 }
@@ -202,7 +214,21 @@ FLACX_API int flacx_lpc_residual_zz(const int32_t* x, const int32_t* taps,
                                     int32_t* zz, int rows, int n, int ntaps,
                                     int wide, cudaStream_t stream) {
   if (bad_args(rows, n, ntaps)) return (int)cudaErrorInvalidValue;
-  launch<true>(x, taps, shift, order, zz, nullptr, nullptr, rows, n, ntaps,
-               wide, stream);
+  launch<ZZ>(x, taps, shift, order, zz, nullptr, nullptr, rows, n, ntaps,
+             wide, stream);
+  return (int)cudaGetLastError();
+}
+
+// Same inputs -> res int32 [rows, n], lzz int64 [rows], maxabs int32
+// [rows]; the int32 MAC only.
+FLACX_API int flacx_lpc_residual_res(const int32_t* x, const int32_t* taps,
+                                     const int32_t* shift,
+                                     const int32_t* order, int32_t* res,
+                                     long long* lzz, int32_t* maxabs,
+                                     int rows, int n, int ntaps,
+                                     cudaStream_t stream) {
+  if (bad_args(rows, n, ntaps)) return (int)cudaErrorInvalidValue;
+  lpc_residual_kernel<RES, false><<<rows, THREADS, 0, stream>>>(
+      x, taps, shift, order, res, lzz, maxabs, n, ntaps);
   return (int)cudaGetLastError();
 }

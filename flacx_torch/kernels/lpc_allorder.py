@@ -2,9 +2,11 @@
 residual at every order 1..P of every row, the residuals never written.
 
 Replaces the TPU kernel ``flacx/kernels/lpcres_tile.py::
-lpc_allorder_stats``; source, bound and design in ``csrc/lpc_allorder.cu``.
-Only the single-int32 MAC is ported: ``encoder.check_supported`` refuses
-the exact search past its bound, and both versions assert it.
+lpc_allorder_stats``, and past its int32 gate the JAX package's int64 XLA
+route of the same statistics; source, bound and design in
+``csrc/lpc_allorder.cu``.  The MAC width follows the static bound as in
+:func:`flacx_torch.kernels.lpc_residual.mac_width`: int32 under it, int64
+("wide") past it, exact on every lane.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import math
 import torch
 
 from flacx_torch.kernels.build import bind, check, launch
-from flacx_torch.ops.lpc import lpc_residuals_all, mac_int32_ok
+from flacx_torch.kernels.lpc_residual import mac_width
+from flacx_torch.ops.lpc import lpc_residuals_all
 from flacx_torch.ops.rice import zigzag
 
 MAX_ORDER = 32
@@ -23,35 +26,40 @@ MAX_ORDER = 32
 def lpc_allorder_plain(x: torch.Tensor, qcoefs: torch.Tensor,
                        shifts: torch.Tensor, eff_bps: int, sum_taps_max: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`lpc_allorder`."""
-    assert mac_int32_ok(eff_bps, sum_taps_max), "past the int32 MAC bound"
+    """Plain version of :func:`lpc_allorder`: the residual of every order
+    (int32 MAC, or int64 past its bound), masked and reduced."""
+    wide = mac_width(eff_bps, sum_taps_max) == "wide"
     p, n = qcoefs.shape[-2], x.shape[-1]
-    res = lpc_residuals_all(x, qcoefs, shifts, torch.int32)  # [..., P, n]
+    res = lpc_residuals_all(x, qcoefs, shifts,
+                            torch.int64 if wide else torch.int32)
     dev = x.device
     warm = (torch.arange(n, device=dev)
             < torch.arange(1, p + 1, device=dev)[:, None])
-    res = res.masked_fill(warm, 0)
-    return zigzag(res).sum(-1, dtype=torch.int64), res.abs().amax(-1)
+    res = res.masked_fill(warm, 0)                       # [..., P, n]
+    maxabs = res.abs().amax(-1)
+    if wide:
+        maxabs = maxabs.clamp(max=(1 << 31) - 1).to(torch.int32)
+    return zigzag(res).sum(-1, dtype=torch.int64), maxabs
 
 
 def lpc_allorder(x: torch.Tensor, qcoefs: torch.Tensor, shifts: torch.Tensor,
                  eff_bps: int, sum_taps_max: int,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(lzz int64 [..., P], maxabs int32 [..., P])``: for each order
-    ``o``, ``Σ zigzag(res_o)`` and ``max |res_o|`` where ``res_o[i] = x[i]
-    - (Σ_{j<o} qcoefs[o-1, j]·x[i-1-j] >> shifts[o-1])`` and ``res_o[i <
-    o] = 0``.
+    ``o``, ``Σ zigzag(res_o)`` and ``min(max |res_o|, 2^31 - 1)`` where
+    ``res_o[i] = x[i] - (Σ_{j<o} qcoefs[o-1, j]·x[i-1-j] >> shifts[o-1])``
+    and ``res_o[i < o] = 0``.
 
     Args:
       x: int32 ``[..., n]``.
       qcoefs: int32 ``[..., P, T]`` (row ``o-1`` is the order-``o``
         predictor, zero past its order; P, T ≤ 32).
       shifts: int32 ``[..., P]``.
-      eff_bps, sum_taps_max: the static width bound the int32 MAC needs.
+      eff_bps, sum_taps_max: the static width bound that picks the MAC
+        (:func:`flacx_torch.kernels.lpc_residual.mac_width`).
     """
     if x.device.type == "cpu":
         return lpc_allorder_plain(x, qcoefs, shifts, eff_bps, sum_taps_max)
-    assert mac_int32_ok(eff_bps, sum_taps_max), "past the int32 MAC bound"
     lead = x.shape[:-1]
     p, t = qcoefs.shape[-2:]
     check(x, "x", torch.int32)
@@ -61,9 +69,10 @@ def lpc_allorder(x: torch.Tensor, qcoefs: torch.Tensor, shifts: torch.Tensor,
         raise ValueError(f"lpc_allorder: {p} orders x {t} taps out of range")
     lzz = torch.empty((*lead, p), dtype=torch.int64, device=x.device)
     maxabs = torch.empty((*lead, p), dtype=torch.int32, device=x.device)
-    launch(bind("lpc_allorder", "flacx_lpc_allorder", 5, 4),
+    launch(bind("lpc_allorder", "flacx_lpc_allorder", 5, 5),
            [x, qcoefs, shifts, lzz, maxabs],
-           [math.prod(lead), x.shape[-1], p, t], "lpc_allorder")
+           [math.prod(lead), x.shape[-1], p, t,
+            int(mac_width(eff_bps, sum_taps_max) == "wide")], "lpc_allorder")
     lpc_allorder.launches += 1
     return lzz, maxabs
 

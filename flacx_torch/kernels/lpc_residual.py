@@ -1,12 +1,16 @@
 """The ``lpc_residual`` kernel: the integer LPC residual of every row, in
-a stats mode (Σ zigzag and max |res|, the residual never written) and a
-zz mode (the zigzag residual written out).
+a stats mode (Σ zigzag and max |res|, the residual never written), a zz
+mode (the zigzag residual written out) and a res mode (the masked
+residual written out with its stats).
 
 Replaces the TPU kernels ``flacx/kernels/lpcres_tile.py::
-lpc_residual_stats`` (stats mode) and ``::zigzag_residual_tiles`` (zz
-mode), their two-limb split MAC included; source, bound and design in
-``csrc/lpc_residual.cu``.  Each mode has two MAC widths: int32 under its
-static bound, and an int64 ("wide") MAC that is exact for every row.
+lpc_residual_stats`` (stats mode), ``::zigzag_residual_tiles`` (zz mode),
+their two-limb split MAC included, and ``::lpc_residual_tiles`` (res
+mode); source, bound and design in ``csrc/lpc_residual.cu``.  The stats
+and zz modes have two MAC widths: int32 under its static bound, and an
+int64 ("wide") MAC that is exact for every row.  The res mode runs only
+under the JAX package's int32 gate (``ops.lpc.fused_int32_ok``), as the
+TPU kernel does.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import math
 import torch
 
 from flacx_torch.kernels.build import bind, check, launch
-from flacx_torch.ops.lpc import mac_int32_ok, predict_residual_fused
+from flacx_torch.ops.lpc import (fused_int32_ok, mac_int32_ok,
+                                 predict_residual_fused)
 from flacx_torch.ops.rice import zigzag
 
 MAX_TAPS = 32
@@ -45,6 +50,16 @@ def lpc_residual_zz_plain(x: torch.Tensor, taps: torch.Tensor,
     res, _, _ = predict_residual_fused(x, taps, shift, order, eff_bps,
                                        sum_taps_max)
     return zigzag(res.to(torch.int32))
+
+
+def lpc_residual_res_plain(x: torch.Tensor, taps: torch.Tensor,
+                           shift: torch.Tensor, order: torch.Tensor,
+                           eff_bps: int, sum_taps_max: int,
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain version of :func:`lpc_residual_res`."""
+    return predict_residual_fused(x, taps, shift, order, eff_bps,
+                                  sum_taps_max)
 
 
 def _check_inputs(x, taps, shift, order):
@@ -105,5 +120,29 @@ def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
     return zz
 
 
+def lpc_residual_res(x: torch.Tensor, taps: torch.Tensor,
+                     shift: torch.Tensor, order: torch.Tensor,
+                     eff_bps: int, sum_taps_max: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(res int32 [..., n], lzz int64, maxabs int32)``: the residual of
+    :func:`lpc_residual_stats`, zero at ``i < order``, with its two
+    statistics, from one pass.  Only under the int32 gate
+    (``ops.lpc.fused_int32_ok``), which the caller checks."""
+    if x.device.type == "cpu":
+        return lpc_residual_res_plain(x, taps, shift, order, eff_bps,
+                                      sum_taps_max)
+    assert fused_int32_ok(eff_bps, sum_taps_max), "past the int32 gate"
+    rows, n, t = _check_inputs(x, taps, shift, order)
+    res = torch.empty_like(x)
+    lzz = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
+    maxabs = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
+    launch(bind("lpc_residual", "flacx_lpc_residual_res", 7, 3),
+           [x, taps, shift, order, res, lzz, maxabs], [rows, n, t],
+           "lpc_residual_res")
+    lpc_residual_res.launches += 1
+    return res, lzz, maxabs
+
+
 lpc_residual_stats.launches = 0
 lpc_residual_zz.launches = 0
+lpc_residual_res.launches = 0

@@ -18,6 +18,8 @@ of ``psize_min``.  Symbol values are unsigned 32-bit, carried in int64.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from flacx_torch.ops.rice import RicePlan
@@ -175,6 +177,36 @@ def general_layout_tables(n: int, psize_min: int,
     extra = [j for j, pos in enumerate(ppos) if pos % psize_min]
     mult = [j for j, pos in enumerate(ppos) if pos % psize_min == 0]
     return extra, mult
+
+
+def segmented_layout(n: int, psize_min: int,
+                     ) -> tuple[int, list[int], list[int]] | None:
+    """The JAX package's segmented tile-emit layout (finest partitions
+    below 40 samples): ``(chunk_segs, extra, mult)``, where ``chunk_segs``
+    is the smallest segment count whose ``[1 param, psize_min samples]``
+    slots fill whole 512-slot packer tiles and ``extra`` / ``mult`` are
+    :func:`general_layout_tables`; None where that tiling does not exist.
+    The port's ``frame_pack`` walks the general layout either way; this
+    decides only where the JAX package writes the residual with its
+    stats (:func:`tile_layout_ok`)."""
+    if psize_min < 1 or n % psize_min or n <= psize_min:
+        return None
+    nseg = n // psize_min
+    chunk = 512 // math.gcd(psize_min + 1, 512)
+    if chunk % 8 or nseg % chunk or (chunk * psize_min) % 128:
+        return None
+    extra, mult = general_layout_tables(n, psize_min)
+    assert len(mult) == nseg
+    return chunk, extra, mult
+
+
+def tile_layout_ok(n: int, psize_min: int) -> bool:
+    """Whether the JAX package's tiled emit applies at this block size and
+    finest partition (blocked or segmented layout).  Where it does not,
+    its estimate search writes the chosen LPC residual together with the
+    statistics (``lpc_residual`` res mode) instead of recomputing it."""
+    return (blocked_layout_ok(n, psize_min)
+            or segmented_layout(n, psize_min) is not None)
 
 
 def interleave_slots(pv: torch.Tensor, sv: torch.Tensor,

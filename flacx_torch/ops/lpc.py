@@ -302,6 +302,14 @@ def mac_int32_ok(eff_bps: int, sum_taps_max: int) -> bool:
     return eff_bps + 1 + max(1, sum_taps_max).bit_length() <= 31
 
 
+def fused_int32_ok(eff_bps: int, sum_taps_max: int) -> bool:
+    """The JAX package's gate for its fused residual kernels: the int32
+    MAC, and zigzag partial sums of 64 samples that fit int32
+    (``(1 + Σ|taps|_max) < 2^(25 - eff_bps)``)."""
+    return (mac_int32_ok(eff_bps, sum_taps_max)
+            and (1 + sum_taps_max) < (1 << max(25 - eff_bps, 0)))
+
+
 def predict_residual_fused(x: torch.Tensor, taps: torch.Tensor,
                            shift: torch.Tensor, order: torch.Tensor,
                            eff_bps: int, sum_taps_max: int,

@@ -10,7 +10,9 @@ mid-tile, silence, the widest lags, every predictor order, zigzag rows
 past every Rice code cap, the general slot layout at finest partitions of
 36, 18 and 16 samples, and the hi-res routes: the wide MAC with sums past
 2^31, the many-partition Rice search at partitions of 1, 2 and 3 samples,
-and frames packed in device memory.  Integers must match exactly; the
+and frames packed in device memory; the residual written with its stats
+(res mode) and the wide all-orders MAC with sums past 2^31.  Integers
+must match exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
 zero.
@@ -122,6 +124,60 @@ def test_lpc_residual_kernel(dev, n, ntaps):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert torch.equal(zz, ref_zz)
+
+
+@pytest.mark.parametrize("n,ntaps,tap_max", [(1152, 12, 16), (777, 32, 6),
+                                             (40, 4, 16), (3000, 1, 16)])
+def test_lpc_residual_kernel_res_mode(dev, n, ntaps, tap_max):
+    """The residual written with its stats, under the int32 gate (17-bit
+    rows, Σ|taps| ≤ 192): rows ending mid-tile, every order up to 32, the
+    fixed predictor, a row whose only tap is its last."""
+    r = 12
+    x = torch.from_numpy(rows(3, r, n)).to(dev)
+    rng = np.random.default_rng(n + ntaps)
+    order = rng.integers(0, ntaps + 1, r).astype(np.int32)
+    taps = rng.integers(-tap_max, tap_max + 1, (r, ntaps)).astype(np.int32)
+    taps[np.arange(ntaps) >= order[:, None]] = 0
+    if ntaps >= 4:
+        taps[2, :4] = FIXED_PREDICTOR_TAPS[4]
+        order[2] = max(order[2], 4)
+    taps[3], order[3] = 0, ntaps
+    taps[3, -1] = -tap_max
+    shift = rng.integers(0, 16, r).astype(np.int32)
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
+    bound = (17, 192)
+    assert np.abs(taps).sum(-1).max() <= 192
+    before = k_lr.lpc_residual_res.launches
+    got = k_lr.lpc_residual_res(*args, *bound)
+    ref = k_lr.lpc_residual_res_plain(*args, *bound)
+    torch.cuda.synchronize()
+    assert k_lr.lpc_residual_res.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert torch.equal(rice.zigzag(got[0]),
+                       k_lr.lpc_residual_zz(*args, *bound))
+
+
+@pytest.mark.parametrize("p,n", [(1, 777), (12, 4608), (12, 1152),
+                                 (32, 777)])
+def test_lpc_allorder_kernel_wide(dev, p, n):
+    """25-bit rows and precision-15 taps (past the int32 MAC bound):
+    every order's sums exact where |res| passes 2^31, max |res| clamped."""
+    r = 10
+    x = torch.from_numpy(rows(7, r, n, bits=25)).to(dev)
+    rng = np.random.default_rng(p + n)
+    qcoefs = rng.integers(-(1 << 14), 1 << 14, (r, p, p)).astype(np.int32)
+    qcoefs[1] = np.where(np.arange(p) % 2, (1 << 14) - 1, -(1 << 14))
+    qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
+    shifts = rng.integers(0, 16, (r, p)).astype(np.int32)
+    shifts[1] = 0
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (qcoefs, shifts)]
+    bound = (25, p << 14)
+    assert k_lr.mac_width(*bound) == "wide"
+    got = k_la.lpc_allorder(*args, *bound)
+    ref = k_la.lpc_allorder_plain(*args, *bound)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(ref[1].max()) == (1 << 31) - 1
 
 
 @pytest.mark.parametrize("n,ntaps", [(1777, 32), (16384, 32)])

@@ -293,3 +293,23 @@ def test_crc16_over_word_rows_matches_host_crc():
 def test_host_crc_check_values():
     assert crc.crc8(b"123456789") == 0xF4
     assert crc.crc16(b"123456789") == 0xFEE8
+
+
+def test_tile_layout_predicates_match_flacx():
+    """``segmented_layout`` and ``tile_layout_ok`` (which picks the
+    estimate search's residual route) against flacx's layout gate
+    (``flacx/encoder.py:318-320``) at every block size and finest
+    partition the CLI can ask for, and at the routes' named cases."""
+    for n in (192, 576, 1152, 2304, 4096, 4608, 8192, 16384):
+        for po in range(16):
+            if n % (1 << po):
+                continue
+            psize = n >> po
+            assert emit.segmented_layout(n, psize) == \
+                fx_emit.segmented_layout(n, psize), (n, psize)
+            assert emit.tile_layout_ok(n, psize) == (
+                fx_emit.blocked_layout_ok(n, psize)
+                or fx_emit.segmented_layout(n, psize) is not None)
+    assert emit.tile_layout_ok(4608, 144) and emit.tile_layout_ok(16384, 1)
+    for n, po in ((1152, 5), (4608, 7), (2304, 6)):
+        assert not emit.tile_layout_ok(n, n >> po), (n, po)

@@ -139,13 +139,14 @@ def test_batch_encoder_streams_in_small_batches(batch):
     ({"partition_orders": tuple(range(10)), "order_search": "exact",
       "wasted_bits": True}, None),
     ({"max_lpc_order": 32, "qlp_precision": 15}, None),
-    ({"max_lpc_order": 32, "qlp_precision": 15, "order_search": "exact"},
-     "int32 MAC"),
+    # refused past the int32 MAC bound until lpc_allorder's wide MAC
+    pytest.param({"max_lpc_order": 32, "qlp_precision": 15,
+                  "order_search": "exact"}, None, id="changes7-int32 MAC"),
 ])
 def test_unsupported_configs_raise(changes, later):
-    """What this slice refuses raises on every device; what the hi-res
-    slice brought (24-bit, 512 partitions, order 32 at precision 15 in
-    the estimate search) encodes a frame that decodes bit-exactly."""
+    """What the port refuses raises on every device; what the hi-res and
+    file slices brought (24-bit, 512 partitions, order 32 at precision 15
+    in either order search) encodes a frame that decodes bit-exactly."""
     cfg = EncoderConfig(block_size=N, **changes)
     if later is not None:
         with pytest.raises(NotImplementedError, match=later):

@@ -41,7 +41,8 @@ def test_port_imports_with_jax_and_flacx_blocked():
             "for m in pkgutil.walk_packages(flacx_torch.__path__, "
             "'flacx_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "import flacx_torch.encoder, chip_smoke\n"
+            "import flacx_torch.encoder, flacx_torch.cli, "
+            "flacx_torch.pipeline, flacx_torch.stream, chip_smoke\n"
             "assert 'jax' not in {k.split('.')[0] for k, v in "
             "sys.modules.items() if v is not None}\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

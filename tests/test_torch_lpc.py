@@ -2,8 +2,9 @@
 
 The same numpy inputs go through both packages: Levinson-Durbin within
 f64 rounding noise, the quantized coefficients and shifts exactly, and the
-integer residual statistics and zigzag residual (the ``lpc_residual``
-kernel's plain version) exactly.
+integer residual statistics, zigzag residual and written residual (the
+``lpc_residual`` kernel's plain version) and the wide all-orders
+statistics (``lpc_allorder``'s) exactly.
 """
 
 import functools
@@ -18,8 +19,10 @@ import jax.numpy as jnp
 from flacx.ops import lpc as fx_lpc
 from flacx.ops.rice import zigzag as fx_zigzag
 
-from flacx_torch.kernels.lpc_residual import (lpc_residual_stats,
-                                              lpc_residual_zz)
+from flacx_torch.kernels.lpc_allorder import lpc_allorder
+from flacx_torch.kernels.lpc_residual import (lpc_residual_res,
+                                              lpc_residual_stats,
+                                              lpc_residual_zz, mac_width)
 from flacx_torch.ops import lpc
 
 from conftest import make_pcm
@@ -161,3 +164,62 @@ def test_window_table_matches_flacx():
                 fx_lpc.apodization_window_np(name, n))
     w = lpc.window_from_numpy(np.ones(8, np.float32))
     assert w.dtype == torch.float32 and w.device.type == "cpu"
+
+
+@pytest.mark.parametrize("r, n, t", [
+    (128, 531, 12),      # ragged tail tile
+    (128, 700, 32),      # max order: lookbehind spans tile boundary
+    (256, 512, 4),       # fixed-predictor tap count, one tile
+])
+def test_residual_res_matches_pallas_kernel(r, n, t):
+    """``lpc_residual_res`` (its plain version on CPU tensors) against
+    flacx's ``lpc_residual_tiles`` in interpret mode, on the inputs of
+    ``test_pallas_kernels.py``'s test of that kernel."""
+    from flacx.kernels.lpcres_tile import lpc_residual_tiles
+
+    rng = np.random.default_rng(n + t)
+    x = rng.integers(-(1 << 16), 1 << 16, size=(r, n)).astype(np.int32)
+    taps = rng.integers(-16, 16, size=(r, t)).astype(np.int32)
+    order = rng.integers(0, t + 1, size=(r,)).astype(np.int32)
+    taps[np.arange(t) >= order[:, None]] = 0
+    shift = rng.integers(0, 15, size=(r,)).astype(np.int32)
+    want = lpc_residual_tiles(*(jnp.asarray(a) for a in (x, taps, shift,
+                                                         order)),
+                              interpret=True)
+    got = lpc_residual_res(*(torch.from_numpy(a) for a in (x, taps, shift,
+                                                           order)),
+                           17, t << 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert [g.dtype for g in got] == [torch.int32, torch.int64, torch.int32]
+
+
+@pytest.mark.parametrize("p", [12, 32])
+def test_wide_allorder_matches_flacx_int64_route(p):
+    """The exact search past the int32 MAC bound (24-bit stereo: eff_bps
+    25, precision-15 taps): ``lpc_allorder``'s plain version equals
+    flacx's int64 ``lpc_residuals_all`` → warm-up mask → zigzag sum on
+    every order's lane, those whose residual passes 2^31 included (max
+    |res| clamps to 2^31 - 1 there)."""
+    r, n = 6, 777
+    rng = np.random.default_rng(p)
+    x = rng.integers(-(1 << 24), 1 << 24, size=(r, n)).astype(np.int32)
+    x[0] = 0
+    x[1] = np.where(np.arange(n) % 2, (1 << 24) - 1, -(1 << 24))
+    qcoefs = rng.integers(-(1 << 14), 1 << 14, size=(r, p, p)) \
+        .astype(np.int32)
+    qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
+    shifts = rng.integers(0, 16, size=(r, p)).astype(np.int32)
+    shifts[1] = 0
+    assert mac_width(25, p << 14) == "wide"
+    res = np.asarray(jax.jit(fx_lpc.lpc_residuals_all, static_argnums=3)(
+        jnp.asarray(x), jnp.asarray(qcoefs), jnp.asarray(shifts), jnp.int64))
+    res = res * (np.arange(n) >= np.arange(1, p + 1)[:, None])
+    want_lzz = np.asarray(fx_zigzag(jnp.asarray(res))).sum(-1)
+    lzz, maxabs = lpc_allorder(*(torch.from_numpy(a) for a in
+                                 (x, qcoefs, shifts)), 25, p << 14)
+    np.testing.assert_array_equal(lzz.numpy(), want_lzz)
+    np.testing.assert_array_equal(
+        maxabs.numpy(), np.minimum(np.abs(res).max(-1), (1 << 31) - 1))
+    assert maxabs.dtype == torch.int32
+    assert (np.abs(res).max(-1) >= 1 << 31).sum() > r * p // 4
