@@ -54,11 +54,12 @@ N, B, SEED = 4608, 1024, 0xF1AC
 BEST_BLOCKS = (4608, 2304, 1152)
 BEST_WINDOWS = ("tukey(0.5)", "hann", "flattop")
 WASTED_FRAMES = 64
-#: H100 SXM data-sheet peaks (NVIDIA, dense, 700 W): HBM bytes/s and
-#: the non-tensor f32 rate, used for every scalar ALU operation of the
-#: headline kernels; int32 multiply-adds and f64 multiplies or adds issue
-#: at 64 per clock per SM (132 SMs, 1.98 GHz).
+#: H100 SXM data-sheet peaks (NVIDIA, dense, 700 W): HBM bytes/s, the
+#: int8 tensor-core rate, and the non-tensor f32 rate, used for every
+#: scalar ALU operation of the kernels; int32 multiply-adds and f64
+#: multiplies or adds issue at 64 per clock per SM (132 SMs, 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
 INT32_MAD_PER_S = F64_OPS_PER_S = 64 * 132 * 1.98e9
 
@@ -266,6 +267,22 @@ def mac_lengths(taps) -> dict:
     return dict(zip(keys.tolist(), counts.tolist()))
 
 
+def allorder_work(x, qcoefs, limbs: int, wide: bool) -> list:
+    """``lpc_allorder``'s least work on this run's data, as ``(operations,
+    rate)`` pairs: each order's multiply-adds of its nonzero taps, two
+    operations each, times the limb products (``limbs`` sample limbs, two
+    tap limbs in a row whose taps pass [-128, 127]) at the int8 tensor
+    rate; and the epilogue of every (sample, order) at the scalar rate:
+    8 operations (shift, subtract, abs, max, zigzag two, 64-bit sum two),
+    16 in the wide mode's int64."""
+    n = x.shape[-1]
+    nonzero = (qcoefs != 0).flatten(-2).sum(-1)
+    two = ((qcoefs < -128) | (qcoefs > 127)).flatten(-2).any(-1)
+    macs = int((nonzero * (1 + two.long())).sum()) * n * limbs
+    epilogue = x.numel() * qcoefs.shape[-2] * (16 if wide else 8)
+    return [(2 * macs, INT8_TENSOR_OPS_PER_S), (epilogue, SCALAR_OPS_PER_S)]
+
+
 def frame_pack_bytes(args) -> int:
     """The bytes ``frame_pack`` must move on this run's data: each symbol's
     value and length at 4 B each (the values are int64 of which the kernel
@@ -354,29 +371,31 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         x, qcoefs = args[0], args[1]
         p = qcoefs.shape[-2]
         wide = k_lr.mac_width(args[3], args[4]) == "wide"
-        # int32: every order's o multiply-adds a sample; wide: one
-        # IMAD.WIDE (two int32 multiply-adds) a sample and nonzero tap
-        work = (2 * int((qcoefs != 0).sum()) * x.shape[-1] if wide
-                else x.numel() * p * (p + 1) // 2)
+        # the instantiation: MAC width, order tiles held, sample limbs
+        limbs = k_la.sample_limbs(args[3])
+        symbol = (f"lpc_allorder_kernel<{str(wide).lower()}, "
+                  f"{2 if p <= 16 else 4}, {limbs}>")
         return kernel_row(
-            torch, name, f"lpc_allorder_kernel<{str(wide).lower()}>",
+            torch, name, symbol,
             k_la.lpc_allorder, k_la.lpc_allorder_plain, args, exact,
-            [(work, INT32_MAD_PER_S)], csrc + "lpc_allorder.cu",
+            allorder_work(x, qcoefs, limbs, wide),
+            csrc + "lpc_allorder.cu",
             "flacx/kernels/lpcres_tile.py:612" + (
                 " + flacx/encoder.py:432-438 (its int64 XLA route)"
                 if wide else ""))
     if wrapper == "rice_stats":
         zz, _, porders, kmax = args
-        levels = k_rs.route(max(porders), kmax) == "levels"
+        n = zz.shape[-1]
         # the least work: every k's sum once at the finest level (the
-        # coarser levels add those up)
+        # coarser levels add those up); flacx's whole-row form takes rows
+        # up to 8192, its chunked form the longer ones
         return kernel_row(
-            torch, name,
-            "rice_stats_levels_kernel" if levels else "rice_stats_kernel",
-            k_rs.rice_stats, rice.rice_stats, args, rice_equal,
+            torch, name, "rice_stats_kernel", k_rs.rice_stats,
+            rice.rice_stats, args, rice_equal,
             [(zz.numel() * (2 * (kmax + 1) + 1), SCALAR_OPS_PER_S)],
             csrc + "rice_stats.cu",
-            f"flacx/kernels/rice_tile.py:{293 if levels else 266}")
+            "flacx/kernels/rice_tile.py:"
+            + ("266" if n <= 8192 and n % 128 == 0 else "293"))
     assert wrapper == "frame_pack"
     xs, psize = args[7], args[12]
     if replaces is None:
@@ -715,14 +734,14 @@ def hires_phase(torch, label: str) -> list[dict]:
     names = {"analysis": "analysis",
              "lpc_residual_stats": "lpc_residual_stats_wide",
              "lpc_residual_zz": "lpc_residual_zz_wide",
-             "rice_stats": "rice_stats_levels",
+             "rice_stats": "rice_stats",
              "frame_pack": "frame_pack" if fp_route == "smem"
              else "frame_pack_global"}
     for wrapper in ("lpc_residual_stats", "lpc_residual_zz"):
         args = captured[wrapper]
         assert k_lr.mac_width(args[4], args[5]) == "wide", wrapper
     zz, _, porders, kmax = captured["rice_stats"]
-    assert k_rs.route(max(porders), kmax) == "levels"
+    assert k_rs.segment_log2(zz.shape[-1], max(porders), kmax) > 0
     assert zz.shape[-1] >> max(porders) == 1
     args = captured["frame_pack"]
     # psize 1: one param slot before every sample, none off the grid

@@ -2,11 +2,14 @@
 of every partition of every requested partition order.
 
 Replaces the TPU kernel ``flacx/kernels/rice_tile.py::rice_stats_tiles``
-(its whole-row and chunked forms); source, bound and design in
-``csrc/rice_stats.cu``.  Any block size whose finest partition divides it
-is taken (the TPU kernel's tile-ratio gap is not copied).  Two routes: a
-shared-memory table of the finest level's sums where it fits, and a
-levels route that searches every partition straight from ``zz`` past it.
+(its whole-row and chunked forms).  One bottom-up partition tree serves
+every path: a block reads its segment of a row's ``zz`` once, sums the
+finest stored level, adds up every coarser level from the one below and
+searches them all from those sums; levels coarser than a segment are
+finished by the row's last block.  Bound: bytes (``zz`` read once, the
+statistics written once).  Source and design in ``csrc/rice_stats.cu``.
+Any block size whose finest partition divides it is taken (the TPU
+kernel's tile-ratio gap is not copied).
 """
 
 from __future__ import annotations
@@ -19,27 +22,38 @@ import torch
 from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.rice import rice_stats as rice_stats_plain
 
-#: Shared memory the smem route may use for its finest-level sums (bytes).
-SMEM_LIMIT = 48 * 1024
+#: Shared memory a block's segment table (and staged zz) may use (bytes).
+SMEM_BUDGET = 48 * 1024
+#: Finest stored partitions under this many samples are summed from zz
+#: staged in shared memory, larger ones a warp each from device memory.
+STAGE_BELOW = 32
 KMAX_LIMIT = 30
 
 
-def smem_bytes(max_po: int, kmax: int) -> int:
-    """Shared memory of the finest-level sums at ``2^max_po`` partitions."""
-    return (kmax + 2) * (1 << max_po) * 4
+def table_stride(kmax: int) -> int:
+    """Words of a table entry: ``kmax + 1`` sums and the max, odd."""
+    return (kmax + 2) | 1
 
 
-def route(max_po: int, kmax: int) -> str:
-    """``"smem"`` where the finest level's table fits :data:`SMEM_LIMIT`,
-    else ``"levels"``."""
-    return "smem" if smem_bytes(max_po, kmax) <= SMEM_LIMIT else "levels"
+def segment_log2(n: int, max_po: int, kmax: int) -> int:
+    """log2 of the segments a row of ``n`` is cut into: the fewest whose
+    partition tree (from the finest stored level up) and staged ``zz``
+    fit :data:`SMEM_BUDGET` (``csrc/rice_stats.cu``'s ``Plan``)."""
+    lo = max_po - 1 if n >> max_po == 1 and max_po > 0 else max_po
+    staged = n >> lo < STAGE_BELOW
+    for s in range(lo + 1):
+        table = ((2 << (lo - s)) - 1) * table_stride(kmax)
+        zs = -(-(n >> s) // 4) * 4 if staged else 0
+        if (table + zs) * 4 <= SMEM_BUDGET:
+            return s
+    raise AssertionError("a one-partition segment always fits")
 
 
 def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                porders: Sequence[int], kmax: int) -> dict:
     """Per-level ``{po: (min4, arg4, min5, arg5, max)}`` of int32 ``zz``
-    ``[..., n]`` with ``order [...]``, each ``[..., 2^po]`` int32, bit
-    for bit as :func:`flacx_torch.ops.rice.rice_stats`."""
+    ``[..., n]`` (≥ 0) with ``order [...]``, each ``[..., 2^po]`` int32,
+    bit for bit as :func:`flacx_torch.ops.rice.rice_stats`."""
     if zz.device.type == "cpu":
         return rice_stats_plain(zz, order, porders, kmax)
     n = zz.shape[-1]
@@ -53,14 +67,18 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                          f"divide block size {n}")
     if not 0 <= kmax <= KMAX_LIMIT:
         raise ValueError(f"rice_stats: kmax {kmax} out of range")
-    tot = sum(1 << po for po in levels)
-    out = torch.empty((math.prod(lead), 5, tot), dtype=torch.int32,
-                      device=zz.device)
-    po_mask = sum(1 << po for po in levels)
-    symbol = {"smem": "flacx_rice_stats",
-              "levels": "flacx_rice_stats_levels"}[route(max_po, kmax)]
-    launch(bind("rice_stats", symbol, 3, 6), [zz, order, out],
-           [math.prod(lead), n, max_po, po_mask, kmax, tot], "rice_stats")
+    rows = math.prod(lead)
+    po_mask = sum(1 << po for po in levels)  # also the entries of a row
+    out = torch.empty((rows, 5, po_mask), dtype=torch.int32, device=zz.device)
+    s = segment_log2(n, max_po, kmax)
+    scratch = tickets = None
+    if s:
+        scratch = torch.empty((rows, (2 << s) - 1, table_stride(kmax)),
+                              dtype=torch.int32, device=zz.device)
+        tickets = torch.zeros(rows, dtype=torch.int32, device=zz.device)
+    launch(bind("rice_stats", "flacx_rice_stats", 5, 6),
+           [zz, order, out, scratch, tickets],
+           [rows, n, max_po, po_mask, kmax, s], "rice_stats")
     rice_stats.launches += 1
     result = {}
     off = 0

@@ -9,10 +9,13 @@ Shapes here are the edges the main paths do not reach: rows that end
 mid-tile, silence, the widest lags, every predictor order, zigzag rows
 past every Rice code cap, the general slot layout at finest partitions of
 36, 18 and 16 samples, and the hi-res routes: the wide MAC with sums past
-2^31, the many-partition Rice search at partitions of 1, 2 and 3 samples,
-and frames packed in device memory; the residual written with its stats
-(res mode) and the wide all-orders MAC with sums past 2^31.  Integers
-must match exactly; the
+2^31, the Rice tree at partitions of 1, 2, 3 and 9 samples over many
+segments, and frames packed in device memory; the residual written with
+its stats (res mode); the all-orders MAC's limb split at its edges (two
+tap limbs, the int32 bound met exactly, the M and K tile edges, rows
+shorter than a tile, full-scale 25-bit rows) and the Rice search's
+(nonpositive counts, sums that wrap uint32).  Integers must match
+exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
 zero.
@@ -85,20 +88,68 @@ def test_analysis_kernel_f64(dev, n, max_lag):
     assert torch.equal(later, autoc)
 
 
-@pytest.mark.parametrize("p", [1, 12, 32])
+@pytest.mark.parametrize("p", [1, 12, 16, 17, 32])
 def test_lpc_allorder_kernel(dev, p):
     """N = 777 (no tile multiple), a silent and a full-scale alternating
-    17-bit row, every order 1..P at precision 5."""
-    n, r = 777, 10
-    x = torch.from_numpy(rows(6, r, n)).to(dev)
-    rng = np.random.default_rng(p)
-    qcoefs = rng.integers(-16, 16, (r, p, p)).astype(np.int32)
+    17-bit row, every order 1..P at precision 5 (P = 16 and 17 on either
+    side of one M tile and a 16-deep K)."""
+    allorder_case(dev, rows(6, 10, 777), p, 5, 17)
+
+
+@pytest.mark.parametrize("eff_bps,p,prec", [(13, 4, 15), (24, 4, 4),
+                                            (17, 12, 9)])
+def test_lpc_allorder_kernel_int32_limbs(dev, eff_bps, p, prec):
+    """Under the int32 bound: precision-15 taps (a high tap limb) with
+    eff_bps + 1 + bitlen(sum |taps|) = 13 + 1 + 17 = 31, full-scale 24-bit
+    rows at 24 + 1 + 6 = 31, and precision 9 (taps just past one limb)."""
+    assert eff_bps + 1 + (p << (prec - 1)).bit_length() <= 31
+    allorder_case(dev, rows(11, 10, 1000, bits=eff_bps), p, prec, eff_bps)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 15])
+def test_lpc_allorder_kernel_short_rows(dev, n):
+    """Rows shorter than a tile of 8 samples or two, at P = 12 and 32."""
+    for p in (12, 32):
+        allorder_case(dev, rows(12, 6, n), p, 5, 17)
+
+
+@pytest.mark.parametrize("p", [12, 32])
+def test_lpc_allorder_kernel_wide_extremes(dev, p):
+    """Rows of -2^24 and 2^24 - 1 (eff_bps 25, four sample limbs) with
+    every tap -2^14, shift 0: the largest sums the int64 combine meets."""
+    n, r = 1000, 4
+    x = np.full((r, n), -(1 << 24), np.int32)
+    x[1] = (1 << 24) - 1
+    x[2] = np.where(np.arange(n) % 2, (1 << 24) - 1, -(1 << 24))
+    x[3, ::3] = (1 << 24) - 1
+    qcoefs = np.full((r, p, p), -(1 << 14), np.int32)
+    qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
+    shifts = np.zeros((r, p), np.int32)
+    got, ref = allorder_pair(dev, x, qcoefs, shifts, 25, p << 14)
+    assert k_lr.mac_width(25, p << 14) == "wide"
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(ref[1].max()) == (1 << 31) - 1
+
+
+def allorder_pair(dev, x, qcoefs, shifts, eff_bps, sum_taps_max):
+    args = [torch.from_numpy(a).to(dev) for a in (x, qcoefs, shifts)]
+    got = k_la.lpc_allorder(*args, eff_bps, sum_taps_max)
+    ref = k_la.lpc_allorder_plain(*args, eff_bps, sum_taps_max)
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def allorder_case(dev, x, p, prec, eff_bps):
+    """Every order 1..P of ``x`` at ``prec``-bit taps (one row at the tap
+    extremes), the kernel against its plain version."""
+    r = x.shape[0]
+    rng = np.random.default_rng(p + prec + x.shape[-1])
+    h = 1 << (prec - 1)
+    qcoefs = rng.integers(-h, h, (r, p, p)).astype(np.int32)
+    qcoefs[min(2, r - 1)] = np.where(np.arange(p) % 2, h - 1, -h)
     qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
     shifts = rng.integers(0, 16, (r, p)).astype(np.int32)
-    args = [x] + [torch.from_numpy(a).to(dev) for a in (qcoefs, shifts)]
-    got = k_la.lpc_allorder(*args, 17, p << 4)
-    ref = k_la.lpc_allorder_plain(*args, 17, p << 4)
-    torch.cuda.synchronize()
+    got, ref = allorder_pair(dev, x, qcoefs, shifts, eff_bps, p << (prec - 1))
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
@@ -216,8 +267,9 @@ def test_lpc_residual_kernel_wide(dev, n, ntaps):
     (16384, tuple(range(15)), 30, 2), (4096, (0, 12), 3, 2)])
 def test_rice_stats_kernel_levels_route(dev, n, porders, kmax, c):
     """Partitions of 1, 2 and 3 samples, sparse levels on four channels,
-    the hi-res shape (orders 0..14 at 16384) and kmax 3."""
-    assert k_rs.route(max(porders), kmax) == "levels"
+    the hi-res shape (orders 0..14 at 16384) and kmax 3: rows cut into
+    segments, the coarse levels finished by each row's last block."""
+    assert k_rs.segment_log2(n, max(porders), kmax) > 0
     rice_stats_case(dev, n, porders, kmax, c)
 
 
@@ -225,10 +277,35 @@ def test_rice_stats_kernel_levels_route(dev, n, porders, kmax, c):
     (4608, (0, 1, 2, 3, 4, 5), 23, 2), (4096, (0, 2, 7), 30, 2),
     (1152, (3,), 0, 2), (1152, (0, 1, 2, 3, 4, 5), 23, 4)])
 def test_rice_stats_kernel(dev, n, porders, kmax, c):
-    """The last case is the best path at block 1152: the four virtual
-    channels, finest partitions of 36 samples."""
-    assert k_rs.route(max(porders), kmax) == "smem"
+    """One segment a row.  The last case is the best path at block 1152:
+    the four virtual channels, finest partitions of 36 samples."""
+    assert k_rs.segment_log2(n, max(porders), kmax) == 0
     rice_stats_case(dev, n, porders, kmax, c)
+
+
+@pytest.mark.parametrize("porders,kmax", [(tuple(range(11)), 30),
+                                          ((0, 2, 4, 6, 8), 23)])
+def test_rice_stats_kernel_block_9216(dev, porders, kmax):
+    """Block 9216 (9 x 1024): 9-sample partitions staged over segments,
+    and 36-sample ones a warp each."""
+    rice_stats_case(dev, 9216, porders, kmax, 2)
+
+
+@pytest.mark.parametrize("kmax", [30, 14, 1, 0])
+def test_rice_stats_kernel_search_edges(dev, kmax):
+    """Orders 0..12 at one-sample partitions with every predictor order
+    0..12 (partition 0's count is 1 - order, nonpositive from order 1),
+    and rows of values near 2^31 - 1 (sums that wrap uint32, small k past
+    the code-length cap, and the max 2^31 - 1 itself)."""
+    n = 4096
+    rng = np.random.default_rng(kmax)
+    zz = rng.integers(0, 1 << 20, (2, 13, n)).astype(np.int32)
+    order = np.tile(np.arange(13, dtype=np.int32), (2, 1))
+    zz = np.where(np.arange(n) < order[..., None], 0, zz).astype(np.int32)
+    zz[1, :, 100:400] = (1 << 31) - 1 - rng.integers(0, 5, (13, 300))
+    zz[1, 3, 500] = (1 << 31) - 1
+    zz[1, 5, :] = (1 << 31) - 2
+    rice_stats_equal(dev, zz, order, tuple(range(13)), kmax)
 
 
 def rice_stats_case(dev, n, porders, kmax, c):
@@ -237,6 +314,10 @@ def rice_stats_case(dev, n, porders, kmax, c):
     zz = np.minimum(rng.exponential(size=(6, c, n)) * scale, 2 ** 30 - 1)
     order = rng.integers(0, 13, size=(6, c)).astype(np.int32)
     zz = np.where(np.arange(n) < order[..., None], 0, zz).astype(np.int32)
+    rice_stats_equal(dev, zz, order, porders, kmax)
+
+
+def rice_stats_equal(dev, zz, order, porders, kmax):
     zt, ot = torch.from_numpy(zz).to(dev), torch.from_numpy(order).to(dev)
     got = k_rs.rice_stats(zt, ot, porders, kmax)
     ref = rice.rice_stats(zt, ot, porders, kmax)

@@ -164,18 +164,17 @@ def test_unsupported_configs_raise(changes, later):
 
 def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     """Partition counts past ``rice_stats``' shared memory and frames past
-    ``frame_pack``'s are no longer refused: each kernel picks its other
-    route by the same limit, from the configuration alone, and the
-    configuration check accepts them."""
+    ``frame_pack``'s are no longer refused: ``rice_stats`` cuts a row into
+    more segments and ``frame_pack`` picks its other route, each from the
+    configuration alone, and the configuration check accepts them."""
     from flacx_torch.encoder import check_supported
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import rice_stats as k_rs
     ok = EncoderConfig(block_size=N, partition_orders=tuple(range(9)))
     many = EncoderConfig(block_size=N, partition_orders=tuple(range(10)))
-    assert k_rs.smem_bytes(max(ok.porders), ok.kmax) <= k_rs.SMEM_LIMIT
-    assert k_rs.route(max(ok.porders), ok.kmax) == "smem"
-    assert k_rs.smem_bytes(max(many.porders), many.kmax) > k_rs.SMEM_LIMIT
-    assert k_rs.route(max(many.porders), many.kmax) == "levels"
+    assert k_rs.segment_log2(N, max(ok.porders), ok.kmax) == 1
+    assert k_rs.segment_log2(N, max(many.porders), many.kmax) == 2
+    assert k_rs.segment_log2(N, 5, ok.kmax) == 0
     hires = dict(block_size=16384, max_lpc_order=32, bps=24,
                  partition_orders=tuple(range(16)))
     stereo = EncoderConfig(**hires)
@@ -183,7 +182,8 @@ def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     assert (stereo.max_frame_bytes, six.max_frame_bytes) == (102656, 295168)
     assert k_fp.route(stereo.max_frame_bytes) == "smem"
     assert k_fp.route(six.max_frame_bytes) == "global"
-    assert k_rs.route(max(stereo.porders), stereo.kmax) == "levels"
+    assert k_rs.segment_log2(stereo.block_size, max(stereo.porders),
+                             stereo.kmax) == 6
     for cfg in (many, stereo, six):
         check_supported(cfg)
         BatchEncoder(cfg, device="cpu")

@@ -108,7 +108,7 @@ def test_wide_mac_matches_flacx_on_every_lane(precision):
 def test_rice_plan_at_many_partitions_matches_flacx(n, max_po):
     """Partition orders 0..10 at block 1024 (one-sample partitions, where
     flacx takes its closed form) and 0..9 at 4608 (9-sample partitions),
-    kmax 30: both past ``rice_stats``' shared-memory route."""
+    kmax 30: both cut into several ``rice_stats`` segments a row."""
     rng = np.random.default_rng(n)
     porders = tuple(range(max_po + 1))
     zz = np.minimum(rng.exponential(size=(3, 2, n))
@@ -116,7 +116,7 @@ def test_rice_plan_at_many_partitions_matches_flacx(n, max_po):
     order = rng.integers(0, 33, size=(3, 2)).astype(np.int32)
     order[0, 0] = 0
     zz = np.where(np.arange(n) < order[..., None], 0, zz).astype(np.int32)
-    assert k_rs.route(max_po, 30) == "levels"
+    assert k_rs.segment_log2(n, max_po, 30) > 0
     ref = jax.jit(functools.partial(fx_rice.exact_plan, porders=porders,
                                     preferred=porders, kmax=30))(
         jnp.asarray(zz), jnp.asarray(order))

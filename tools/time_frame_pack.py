@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Device time of the ``frame_pack`` kernel on the headline batch, from any
-checkout of flacx_torch.
+"""Device time of one or more flacx_torch kernels at the shapes of one or
+more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
 
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
+        [--kernel {frame_pack,lpc_allorder,rice_stats} ...]
+        [--path {headline,best4608,best2304,best1152,hires,hires6,
+                 file_best24} ...]
 
-Encodes one headline batch (block 4608, LPC order 12, the 1024-frame
-two-tone PCM of ``chip_smoke.py``) with the ``flacx_torch`` package found
-in ``DIR`` (default: this checkout), keeps the arguments of its
-``frame_pack`` launch, checks the kernel's bytes against the plain
-version, and prints one JSON line: the tree, the median kernel time of
-``--reps`` launches under the profiler, and the card's name and power
-limit.  Run it on two checkouts in one call (A, B, B, A) to compare two
-versions of the kernel at this shape.  Needs CUDA.
+Encodes one batch of each path (the data of ``chip_smoke.py``: the
+1024-frame headline batch at block 4608; the best-compression batch at
+block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch; ``file_best24``
+the 256-frame ``--best`` batches of the 24-bit master at blocks 4608, 2304
+and 1152) with the ``flacx_torch`` package found in ``DIR`` (default:
+this checkout), keeps the arguments of each kernel's first launch, checks
+the kernel against its plain version, and prints one JSON line per batch:
+the tree, the median kernel time of ``--reps`` launches under the
+profiler for each kernel, and the card's name and power limit.  Run it on
+two checkouts in one call (A, B, B, A) to compare two versions of a
+kernel at these shapes.  Defaults: ``frame_pack`` at the headline.  Needs
+CUDA.
 """
 
 from __future__ import annotations
@@ -23,6 +30,50 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
+         "file_best24")
+#: kernel -> (a substring of its CUDA symbol in every version, module,
+#: wrapper, plain version)
+KERNELS = {
+    "frame_pack": ("frame_pack_kernel", "frame_pack", "frame_pack",
+                   "frame_pack_plain"),
+    "lpc_allorder": ("lpc_allorder_kernel", "lpc_allorder", "lpc_allorder",
+                     "lpc_allorder_plain"),
+    "rice_stats": ("rice_stats", "rice_stats", "rice_stats", None),
+}
+
+
+def batches(cs, path: str):
+    """``(label, encoder, planar batch)`` of each batch of ``path``."""
+    import numpy as np
+
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+
+    if path == "headline":
+        enc = BatchEncoder(EncoderConfig(block_size=cs.N, max_lpc_order=12),
+                           batch_frames=cs.B)
+        pcm = cs.synth_pcm(np.random.default_rng(cs.SEED), cs.N * cs.B)
+        yield path, enc, cs.blocks_of(pcm, cs.N)
+    elif path.startswith("best"):
+        bs = int(path[4:])
+        pcm = cs.synth_pcm(np.random.default_rng(cs.SEED), cs.N * cs.B)
+        enc = BatchEncoder(cs.best_config(bs), batch_frames=cs.B)
+        yield path, enc, cs.blocks_of(pcm, bs)[:cs.B]
+    elif path.startswith("hires"):
+        channels, frames, _ = cs.HIRES[path]
+        enc = BatchEncoder(cs.hires_config(channels), batch_frames=frames)
+        yield path, enc, cs.blocks_of(cs.hires_pcm(channels, frames),
+                                      cs.HIRES_N, np.int32)
+    else:
+        assert path == "file_best24", path
+        master = cs.file_inputs()["master"][0]
+        for bs in cs.BEST_BLOCKS:
+            cfg = EncoderConfig(block_size=bs, bps=24,
+                                sample_rate=cs.MASTER_RATE,
+                                order_search="exact", windows=cs.BEST_WINDOWS)
+            enc = BatchEncoder(cfg, batch_frames=cs.FILE_BATCH)
+            yield (f"{path}@{bs}", enc,
+                   cs.blocks_of(master, bs, np.int32)[:cs.FILE_BATCH])
 
 
 def main() -> int:
@@ -30,11 +81,15 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT),
                     help="checkout whose flacx_torch to time")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
+                    default=["frame_pack"])
+    ap.add_argument("--path", nargs="+", choices=PATHS, default=["headline"])
     args = ap.parse_args()
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
 
-    import numpy as np
+    import importlib
+
     import torch
 
     # this checkout's helpers, whatever tree the package comes from
@@ -47,27 +102,38 @@ def main() -> int:
         print("time_frame_pack: CUDA is not available", file=sys.stderr)
         return 1
     import flacx_torch
-    from flacx_torch.encoder import BatchEncoder, EncoderConfig
-    from flacx_torch.kernels import frame_pack as k_fp
+    from flacx_torch.ops import rice
 
     if not Path(flacx_torch.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"flacx_torch came from {flacx_torch.__file__}")
-    enc = BatchEncoder(EncoderConfig(block_size=cs.N, max_lpc_order=12),
-                       batch_frames=cs.B)
-    planar = cs.blocks_of(
-        cs.synth_pcm(np.random.default_rng(cs.SEED), cs.N * cs.B), cs.N)
-    captured, restore = cs.capture_main_path_inputs(("frame_pack",))
-    try:
-        enc.encode_batch_device(planar, 0)
-    finally:
-        restore()
-    fp_args = captured["frame_pack"]
-    cs.exact(torch, k_fp.frame_pack(*fp_args), k_fp.frame_pack_plain(*fp_args))
-    ms = cs.kernel_times(torch, {"frame_pack_kernel": lambda: k_fp.frame_pack(
-        *fp_args)}, args.reps)["frame_pack_kernel"]
-    print(json.dumps({"tree": args.tree, "frame_pack_ms": ms,
-                      "reps": args.reps, "psize": fp_args[12],
-                      "card": cs.card_line()}), flush=True)
+    card = cs.card_line()
+    for path in args.path:
+        for label, enc, planar in batches(cs, path):
+            captured, restore = cs.capture_main_path_inputs(args.kernel)
+            try:
+                enc.encode_batch_device(planar, 0)
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            launches = {}
+            for kernel in args.kernel:
+                if kernel not in captured:
+                    raise RuntimeError(f"{kernel} does not run on {label}")
+                symbol, module, wrapper, plain = KERNELS[kernel]
+                mod = importlib.import_module(f"flacx_torch.kernels.{module}")
+                fn = getattr(mod, wrapper)
+                kargs = captured[kernel]
+                if plain is None:
+                    cs.rice_equal(torch, fn(*kargs), rice.rice_stats(*kargs))
+                else:
+                    cs.exact(torch, fn(*kargs), getattr(mod, plain)(*kargs))
+                launches[symbol] = (lambda f=fn, a=kargs: f(*a))
+            ms = cs.kernel_times(torch, launches, args.reps)
+            print(json.dumps({
+                "tree": args.tree, "path": label,
+                "ms": {k: ms[KERNELS[k][0]] for k in args.kernel},
+                "reps": args.reps, "card": card}), flush=True)
+            del captured, launches, enc, planar
     return 0
 
 
