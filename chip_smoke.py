@@ -16,7 +16,8 @@ these paths through ``BatchEncoder`` on the card:
 * the hi-res encode (``BASELINE.json`` configs[2]: 24-bit/96 kHz, block
   16384, LPC order 32, partition orders 0..15, estimate search): one
   128-frame stereo batch (``hires``) and one 64-frame 5.1 batch
-  (``hires6``, frames past ``frame_pack``'s shared memory);
+  (``hires6``, frames of up to 295,168 bytes, past a block's shared
+  memory);
 * the file encode (``file``): ``python -m flacx_torch encode`` in process
   on WAV files written from the seed, a 3-minute 16-bit CD rip at the
   defaults and at ``-b 1152`` (the ``lpc_residual`` res mode) and a 60 s
@@ -33,7 +34,8 @@ plain CPU path byte for byte wherever both chose the same coefficients.
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
-and file paths and ``<mode>@hires`` / ``<mode>@hires6`` on the hi-res ones;
+path, ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires``
+/ ``<mode>@hires6`` on the hi-res ones;
 ``launches`` counts the launches of that path's counted encode, which
 runs ``batches`` batches), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -106,10 +108,11 @@ def kernel_times(torch, calls: dict, reps: int) -> dict:
     """Median device ms of each kernel in ``calls`` (a symbol its name
     contains → a function that launches it), from one profiler trace in
     which each function runs ``reps`` times: free of the wrappers' host
-    time.  The profiler drops a launch's record now and then, the more
-    often the more traces a process has taken; a trace that holds fewer
-    than half of some kernel's launches is taken again, up to three
-    times."""
+    time.  Where one call launches several kernels whose names contain
+    the symbol, their medians add up.  The profiler drops a launch's
+    record now and then, the more often the more traces a process has
+    taken; a trace that holds fewer than half of some kernel's launches
+    is taken again, up to three times."""
     assert not any(a != b and a in b for a in calls for b in calls), calls
     for fn in calls.values():
         fn()
@@ -122,16 +125,21 @@ def kernel_times(torch, calls: dict, reps: int) -> dict:
                 for _ in range(reps):
                     fn()
             torch.cuda.synchronize()
-        times = {symbol: [] for symbol in calls}
+        times = {symbol: {} for symbol in calls}
         for e in prof.events():
             if "CUDA" in str(e.device_type):
-                for symbol, ts in times.items():
+                for symbol, by_name in times.items():
                     if symbol in e.name:
-                        ts.append(e.time_range.elapsed_us() / 1e3)
-        seen.append({symbol: len(ts) for symbol, ts in times.items()})
-        if all(reps <= 2 * len(ts) <= 2 * reps for ts in times.values()):
-            return {symbol: float(np.median(ts))
-                    for symbol, ts in times.items()}
+                        by_name.setdefault(e.name, []).append(
+                            e.time_range.elapsed_us() / 1e3)
+        seen.append({symbol: [len(ts) for ts in by_name.values()]
+                     for symbol, by_name in times.items()})
+        if all(by_name and all(reps <= 2 * len(ts) <= 2 * reps
+                               for ts in by_name.values())
+               for by_name in times.values()):
+            return {symbol: sum(float(np.median(ts))
+                                for ts in by_name.values())
+                    for symbol, by_name in times.items()}
     raise RuntimeError(f"profiler saw {seen} launches in three traces of "
                        f"{reps} each")
 
@@ -170,7 +178,9 @@ def capture_main_path_inputs(names=HEADLINE_SPIES, per_block=False):
         originals.append((module, attr, fn))
 
         def wrapped(*args, **kwargs):
-            key = (attr, args[0].shape[-1]) if per_block else attr
+            # frame_pack's first argument is the header; its x the 8th
+            block = args[7 if attr == "frame_pack" else 0].shape[-1]
+            key = (attr, block) if per_block else attr
             captured.setdefault(key, args + tuple(kwargs.values()))
             return fn(*args, **kwargs)
         setattr(module, attr, wrapped)
@@ -730,13 +740,11 @@ def hires_phase(torch, label: str) -> list[dict]:
     finally:
         restore()
     torch.cuda.synchronize()
-    fp_route = k_fp.route(cfg.max_frame_bytes)
     names = {"analysis": "analysis",
              "lpc_residual_stats": "lpc_residual_stats_wide",
              "lpc_residual_zz": "lpc_residual_zz_wide",
              "rice_stats": "rice_stats",
-             "frame_pack": "frame_pack" if fp_route == "smem"
-             else "frame_pack_global"}
+             "frame_pack": "frame_pack"}
     for wrapper in ("lpc_residual_stats", "lpc_residual_zz"):
         args = captured[wrapper]
         assert k_lr.mac_width(args[4], args[5]) == "wide", wrapper
@@ -747,6 +755,8 @@ def hires_phase(torch, label: str) -> list[dict]:
     # psize 1: one param slot before every sample, none off the grid
     assert args[12] == 1 and args[4].shape[-1] == HIRES_N
     assert len(param_slot_positions(HIRES_N, 1)) == HIRES_N
+    slots = args[0].shape[-1] + channels * (args[2].shape[-1] + 2 * HIRES_N)
+    chunks = -(-slots // k_fp.CHUNK_SLOTS)
     stats_taps, stats_order = captured["lpc_residual_stats"][1:4:2]
     orders = np.unique(stats_order.cpu().numpy(), return_counts=True)
     print(f"{label}: lpc_residual rows by chosen LPC order (stats) "
@@ -780,8 +790,9 @@ def hires_phase(torch, label: str) -> list[dict]:
     e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
     samples = frames * HIRES_N * channels
     print(f"{label}: {frames} frames x {channels} channels x {HIRES_N}, "
-          f"frame_pack route {fp_route} ({cfg.max_frame_bytes} bytes a "
-          f"frame at most); launches {counts}; all CRC-16 valid, {decode} "
+          f"frame_pack {chunks} chunks of {k_fp.CHUNK_SLOTS} slots a frame "
+          f"({cfg.max_frame_bytes} bytes a frame at most); launches "
+          f"{counts}; all CRC-16 valid, {decode} "
           f"decoded bit-exact at 24-bit; cpu plain path byte-equal on "
           f"{decode - differ}/{decode} ({differ} chose other coefficients); "
           f"{total} bytes, ratio {total / pcm_bytes:.4f} of 24-bit PCM; "
@@ -960,9 +971,11 @@ def file_phase(torch) -> list[dict]:
     ``lpc_residual`` res mode), the 24-bit master with ``--best`` (the
     wide ``lpc_allorder`` at each block size).  Each encode is counted
     and its file checked (:func:`check_flac`); a 20 s excerpt of each is
-    encoded on the card and with ``--device cpu``.  The new kernel modes
-    are held against their plain versions at their path's shapes, and
-    the two routes of the ``-b 1152`` estimate batch are timed."""
+    encoded on the card and with ``--device cpu``.  The kernels are held
+    against their plain versions at the file paths' shapes (rows
+    ``<mode>@file_<label>_<block>``; ``lpc_residual_res@1152`` and
+    ``lpc_allorder_wide@<block>`` as before), and the two routes of the
+    ``-b 1152`` estimate batch are timed."""
     import tempfile
     from pathlib import Path
 
@@ -1013,8 +1026,8 @@ def file_phase(torch) -> list[dict]:
         for label, (key, flags, needed) in FILE_RUNS.items():
             pcm, rate, bps = inputs[key]
             spies, restore = capture_main_path_inputs(
-                ("lpc_residual_res", "lpc_residual_zz", "lpc_allorder"),
-                per_block=True)
+                ("analysis", "lpc_residual_res", "lpc_residual_zz",
+                 "lpc_allorder", "rice_stats", "frame_pack"), per_block=True)
             pipeline._oracle_frame = timed_oracle
             pipeline.encode_to_file = counted_blocks
             oracle_s.clear()
@@ -1084,23 +1097,49 @@ def file_phase(torch) -> list[dict]:
     zz_fix_args = captured["b1152"][("lpc_residual_zz", 1152)]
     assert res_args[0].shape == (FILE_BATCH, 4, 1152), res_args[0].shape
     assert zz_fix_args[1].shape[-1] == 4
-    counts, per_block, batches = launched["b1152"]
-    rows.append(hold(torch, "lpc_residual_res@1152", "lpc_residual_res",
-                     res_args))
-    rows[-1]["launches"] = counts["lpc_residual_res"]
-    rows[-1]["batches"] = batches[1152]
-    counts, per_block, batches = launched["best"]
+
+    def file_row(name, label, wrapper, b, args):
+        counts, per_block, batches = launched[label]
+        row = hold(torch, name, wrapper, args)
+        row["launches"] = (per_block[b] if label == "best" else
+                           counts)[wrapper]
+        row["batches"] = batches[b]
+        return row
+
+    def pack_row(label, b):
+        args = captured[label][("frame_pack", b)]
+        assert args[7].shape[:2] == (FILE_BATCH, 2), args[7].shape
+        mode = ("frame_pack" if emit.blocked_layout_ok(b, args[12])
+                else "frame_pack_general")
+        return file_row(f"{mode}@file_{label}_{b}", label, "frame_pack", b,
+                        args)
+
+    # one trace per group: rows that share a kernel symbol apart
+    groups = [[file_row("lpc_residual_res@1152", "b1152", "lpc_residual_res",
+                        1152, res_args), pack_row("b1152", 1152)],
+              [pack_row("default", N)]]
+    best = captured["best"]
     for b in BEST_BLOCKS:
-        args = captured["best"][("lpc_allorder", b)]
+        args = best[("lpc_allorder", b)]
         assert args[0].shape == (FILE_BATCH, 4, b) and args[1].shape[-2] == 12
-        rows.append(hold(torch, f"lpc_allorder_wide@{b}", "lpc_allorder",
-                         args))
-        rows[-1]["launches"] = per_block[b]["lpc_allorder"]
-        rows[-1]["batches"] = batches[b]
-    # rows that share a kernel symbol are timed in separate traces
-    time_rows(torch, rows[:2])
-    for row in rows[2:]:
-        time_rows(torch, [row])
+        group = [file_row(f"lpc_allorder_wide@{b}", "best", "lpc_allorder", b,
+                          args)]
+        args = best[("analysis", b)]
+        assert args[1].dtype == torch.float64 and args[3]
+        group.append(file_row(f"analysis_f64@file_best_{b}", "best",
+                              "analysis", b, args))
+        args = best[("lpc_residual_zz", b)]
+        assert args[0].shape == (FILE_BATCH, 4, b), args[0].shape
+        wide = "_wide" if k_lr.mac_width(args[4], args[5]) == "wide" else ""
+        group.append(file_row(f"lpc_residual_zz{wide}@file_best_{b}", "best",
+                              "lpc_residual_zz", b, args))
+        group.append(file_row(f"rice_stats@file_best_{b}", "best",
+                              "rice_stats", b, best[("rice_stats", b)]))
+        group.append(pack_row("best", b))
+        groups.append(group)
+    for group in groups:
+        time_rows(torch, group)
+        rows += group
 
     # the -b 1152 estimate batch on its other route: the chosen order's
     # stats (stats mode) and the merged taps' residual (zz mode), as where

@@ -10,10 +10,10 @@ merge ``bitpack_tile.py::merge_strings_t_leveled`` of the hi-res path, and
 the classic path's ``bitpack_tile.py::merge_tiles`` → ``merge_strings``
 below 40-sample partitions; source, bound and design in
 ``csrc/frame_pack.cu``.  The kernel walks the general layout's slots,
-which give the blocked layout's stream wherever that applies, and packs a
-frame in shared memory or, past :data:`SMEM_LIMIT`, straight into its
-output row.  Its plain version is the classic symbol chain: ``emit``
-symbols → merge-tree packer → CRC-16 fold.
+which give the blocked layout's stream wherever that applies, in chunks
+of :data:`CHUNK_SLOTS` slots a block, whatever the frame's size.  Its
+plain version is the classic symbol chain: ``emit`` symbols → merge-tree
+packer → CRC-16 fold.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from flacx_torch.format import CRC16_POLYNOMIAL
 from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.bitpack import pack_symbols_words, words_to_bytes
 from flacx_torch.ops.crcfold import crc16_over_word_rows
@@ -29,22 +30,45 @@ from flacx_torch.ops.emit import (general_layout_tables, interleave_slots,
                                   sample_symbols_from)
 
 
-#: Largest frame the kernel packs in shared memory (bytes).
-SMEM_LIMIT = 200 * 1024
-
-
-def route(max_frame_bytes: int) -> str:
-    """``"smem"`` for frames up to :data:`SMEM_LIMIT`, else ``"global"``
-    (the words packed in the output row in device memory)."""
-    return "smem" if max_frame_bytes <= SMEM_LIMIT else "global"
+#: Symbol slots a block of the kernel packs (``CHUNK`` in the source).
+CHUNK_SLOTS = 1024
+#: Chunks whose words a block places (``GROUP`` in the source).
+PLACE_CHUNKS = 4
 
 
 @functools.lru_cache(maxsize=None)
 def _layout_tables(n: int, psize_min: int, device: torch.device,
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The general layout's ``extra`` and ``mult`` tables on ``device``."""
-    return tuple(torch.tensor(t, dtype=torch.int32, device=device)
-                 for t in general_layout_tables(n, psize_min))
+                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The general layout's ``extra`` and ``mult`` tables on ``device``,
+    and the first segment from which ``mult[s] = s + len(extra)``."""
+    extra, mult = general_layout_tables(n, psize_min)
+    head = len(mult)
+    while head and mult[head - 1] == head - 1 + len(extra):
+        head -= 1
+    return (torch.tensor(extra, dtype=torch.int32, device=device),
+            torch.tensor(mult, dtype=torch.int32, device=device), head)
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_consts(device: torch.device) -> torch.Tensor:
+    """The kernel's CRC-16 constants (P the polynomial): the table rows
+    ``i * x^(16 + 8k) mod P`` for ``k < 4``, ``i < 256`` (one and four
+    bytes a step), then ``x^(8k) mod P`` for ``k`` up to the bytes a block
+    places, ``4 * PLACE_CHUNKS * CHUNK_SLOTS + 4`` (each run's CRC shifted
+    by the bytes after it)."""
+    def times_x8(r: int) -> int:
+        for _ in range(8):
+            r = (r << 1) ^ (CRC16_POLYNOMIAL if r & 0x8000 else 0)
+        return r
+
+    rows = [[times_x8(times_x8(i)) for i in range(256)]]
+    for _ in range(3):
+        rows.append([times_x8(v) for v in rows[-1]])
+    shifts = [1]
+    for _ in range(4 * PLACE_CHUNKS * CHUNK_SLOTS + 4):
+        shifts.append(times_x8(shifts[-1]))
+    return torch.tensor([v for row in rows for v in row] + shifts,
+                        dtype=torch.int32, device=device)
 
 
 def frame_pack_plain(hdr_v: torch.Tensor, hdr_l: torch.Tensor,
@@ -116,7 +140,7 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
         raise ValueError(f"frame_pack: finest partition {psize_min} does "
                          f"not divide block {n}")
     dev = x.device
-    extra, mult = _layout_tables(n, psize_min, dev)
+    extra, mult, mult_head = _layout_tables(n, psize_min, dev)
     p = extra.numel() + mult.numel()
     check(hdr_v, "hdr_v", torch.int64, (b, hdr_v.shape[-1]), dev)
     check(hdr_l, "hdr_l", torch.int32, hdr_v.shape, dev)
@@ -132,15 +156,18 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
                          "of 4")
     meta = torch.stack([kind, order, bps], dim=-1).to(torch.int32) \
         .contiguous()
-    in_global = route(max_frame_bytes) == "global"
-    out = (torch.zeros if in_global else torch.empty)(
-        (b, max_frame_bytes), dtype=torch.uint8, device=dev)
+    h, sh = hdr_v.shape[-1], sh_v.shape[-1]
+    chunks = -(-(h + c * (sh + p + n)) // CHUNK_SLOTS)
+    out = torch.empty((b, max_frame_bytes), dtype=torch.uint8, device=dev)
     length = torch.empty(b, dtype=torch.int32, device=dev)
-    launch(bind("frame_pack", "flacx_frame_pack", 14, 10),
+    # each chunk's packed words, bit count and CRC part; a ticket a frame
+    work = torch.empty(b * (chunks * (CHUNK_SLOTS + 2) + 1),
+                       dtype=torch.int32, device=dev)
+    launch(bind("frame_pack", "flacx_frame_pack", 16, 12),
            [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
-            out, length],
-           [b, c, hdr_v.shape[-1], sh_v.shape[-1], p, n, psize_min,
-            max_frame_bytes, extra.numel(), int(in_global)], "frame_pack")
+            _crc_consts(dev), out, length, work],
+           [b, c, h, sh, p, n, psize_min, max_frame_bytes, extra.numel(),
+            mult_head, CHUNK_SLOTS, PLACE_CHUNKS], "frame_pack")
     frame_pack.launches += 1
     return out, length
 

@@ -10,8 +10,11 @@ mid-tile, silence, the widest lags, every predictor order, zigzag rows
 past every Rice code cap, the general slot layout at finest partitions of
 36, 18 and 16 samples, and the hi-res routes: the wide MAC with sums past
 2^31, the Rice tree at partitions of 1, 2, 3 and 9 samples over many
-segments, and frames packed in device memory; the residual written with
-its stats (res mode); the all-orders MAC's limb split at its edges (two
+segments, and 5.1 frames past 200 KB; the frame packer's chunk edges
+(words shared by two chunks, chunk totals on and off a 32-bit word,
+blocks the chunk size does not divide, chunks with no bits, 32-bit
+symbols, a batch of one frame); the residual written with its stats (res
+mode); the all-orders MAC's limb split at its edges (two
 tap limbs, the int32 bound met exactly, the M and K tile edges, rows
 shorter than a tile, full-scale 25-bit rows) and the Rice search's
 (nonpositive counts, sums that wrap uint32).  Integers must match
@@ -395,7 +398,7 @@ def test_frame_pack_kernel_global_route(dev, verbatim):
     porders = tuple(range(15))
     cfg = EncoderConfig(block_size=n, max_lpc_order=32, bps=24, channels=c,
                         partition_orders=porders)
-    assert k_fp.route(cfg.max_frame_bytes) == "global"
+    assert cfg.max_frame_bytes == 295168
     rng = np.random.default_rng(9)
     x = rows(10, b * c, n, bits=24).reshape(b, c, n)
     kind = rng.integers(0, 4, (b, c)).astype(np.int32)
@@ -431,4 +434,139 @@ def test_frame_pack_kernel_global_route(dev, verbatim):
     ref, ref_len = k_fp.frame_pack_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(length, ref_len) and torch.equal(out, ref)
-    assert (int(length[0]) > k_fp.SMEM_LIMIT) == verbatim
+    assert (int(length[0]) > 200 * 1024) == verbatim
+
+
+def frame_pack_inputs(dev, b, c, n, porders, bits=16, kind=None, seed=3,
+                      hdr_lengths=None):
+    """``frame_pack`` arguments of ``b`` frames of ``c`` channels: random
+    subframe kinds (or ``kind``), fixed predictors, exact Rice plans; with
+    ``hdr_lengths`` one more frame-header symbol (random bits) of these
+    lengths, one a frame."""
+    rng = np.random.default_rng(seed)
+    x = rows(seed + 1, b * c, n, bits=bits).reshape(b, c, n)
+    if kind is None:
+        kind = rng.integers(0, 4, (b, c))
+        kind[0, 0] = emit.KIND_FIXED
+        x[0, 0] = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), n)
+    kind = np.asarray(kind, np.int32)
+    x[kind == emit.KIND_CONSTANT] = 77
+    order = np.where(kind >= emit.KIND_FIXED,
+                     rng.integers(0, 5, (b, c)), 0).astype(np.int32)
+    order[kind == emit.KIND_LPC] = np.maximum(order[kind == emit.KIND_LPC], 1)
+    taps = np.zeros((b, c, 12), np.int32)
+    taps[..., :4] = FIXED_PREDICTOR_TAPS[order]
+    t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        x=x, kind=kind, order=order, taps=taps,
+        shift=np.zeros((b, c), np.int32),
+        bps=np.full((b, c), bits, np.int32)).items()}
+    zz = k_lr.lpc_residual_zz_plain(t["x"], t["taps"], t["shift"],
+                                    t["order"], bits + 1, 15)
+    cfg = EncoderConfig(block_size=n, bps=bits, channels=c,
+                        partition_orders=porders)
+    plan = rice.exact_plan(zz, t["order"], porders, porders, cfg.kmax)
+    hdr = frame_header_symbols(
+        torch.arange(b, device=dev) * 70001,
+        torch.ones(b, dtype=torch.int32, device=dev), n)
+    hdr_v, hdr_l = hdr.values, hdr.lengths
+    if hdr_lengths is not None:
+        more = torch.from_numpy(rng.integers(0, 1 << 32, (b, 1))).to(dev)
+        hdr_v = torch.cat([hdr_v, more], 1).contiguous()
+        hdr_l = torch.cat([hdr_l, torch.tensor(
+            hdr_lengths, dtype=torch.int32, device=dev)[:, None]],
+            1).contiguous()
+    sh_v, sh_l = emit.subframe_header_symbols(
+        t["kind"], t["order"], t["bps"], t["x"], t["taps"], t["shift"], 5,
+        plan)
+    pv, pl = emit.partition_param_symbols(t["kind"], plan)
+    kesc = (plan.k_seg.int() | (plan.esc_seg.int() << 7)).contiguous()
+    return [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, t["x"], kesc, t["kind"],
+            t["order"], t["bps"], n >> max(porders), cfg.max_frame_bytes]
+
+
+def chunk_bits(args) -> np.ndarray:
+    """``[B, chunks]`` bits of each chunk of the kernel's slot walk (the
+    general layout's order, :data:`k_fp.CHUNK_SLOTS` slots a chunk)."""
+    hdr_l, sh_l, pl, zz, x, kesc, kind, order, bps, psize = (
+        args[i] for i in (1, 3, 5, 6, 7, 8, 9, 10, 11, 12))
+    b, c, n = x.shape
+    _, sl = emit.sample_symbols_from(
+        kind, order, bps, x, zz, (kesc & 31).repeat_interleave(psize, -1),
+        ((kesc >> 7) & 1).bool().repeat_interleave(psize, -1))
+    extra, mult = emit.general_layout_tables(n, psize)
+    seg = torch.cat([pl[..., mult][..., None],
+                     sl.reshape(b, c, n // psize, psize)], -1)
+    slots = torch.cat([hdr_l, torch.cat(
+        [sh_l, pl[..., extra], seg.reshape(b, c, -1)], -1).reshape(b, -1)],
+        -1).long().cpu().numpy()
+    pad = -slots.shape[1] % k_fp.CHUNK_SLOTS
+    return np.pad(slots, ((0, 0), (0, pad))).reshape(
+        b, -1, k_fp.CHUNK_SLOTS).sum(-1)
+
+
+def frame_pack_equal(args):
+    before = k_fp.frame_pack.launches
+    out, length = k_fp.frame_pack(*args)
+    ref, ref_len = k_fp.frame_pack_plain(*args)
+    torch.cuda.synchronize()
+    assert k_fp.frame_pack.launches == before + 1
+    assert torch.equal(length, ref_len) and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n,porders,bits,c", [
+    (1152, (0, 1, 2, 3, 4, 5), 16, 6), (4096, (0, 3, 8), 16, 2),
+    (9216, tuple(range(9)), 16, 2), (16384, tuple(range(15)), 24, 2)])
+def test_frame_pack_kernel_chunk_edges(dev, n, porders, bits, c):
+    """Blocks whose slot count the chunk size does not divide; a frame
+    header symbol sized so that frame 0's first chunk ends on a 32-bit
+    word and frame 1's does not (a word then holds bits of two chunks)."""
+    kind = [[2, 3] * (c // 2), [2, 1] * (c // 2)]
+    args = frame_pack_inputs(dev, 2, c, n, porders, bits, kind=kind,
+                             hdr_lengths=[0, 0])
+    first = chunk_bits(args)[:, 0]
+    args[1][:, -1] = torch.tensor([-first[0] % 32, (13 - first[1]) % 32],
+                                  dtype=torch.int32, device=dev)
+    bits_ = chunk_bits(args)
+    slots = args[1].shape[-1] + c * (args[3].shape[-1] + args[5].shape[-1]
+                                     + n)
+    assert bits_.shape[1] > 1 and slots % k_fp.CHUNK_SLOTS
+    assert bits_[0, 0] % 32 == 0 and bits_[1, 0] % 32 != 0
+    frame_pack_equal(args)
+
+
+def test_frame_pack_kernel_headers_only(dev):
+    """Every subframe constant: only the chunks that hold a header carry
+    bits."""
+    args = frame_pack_inputs(dev, 3, 2, 16384, tuple(range(15)), 24,
+                             kind=np.zeros((3, 2)))
+    bits_ = chunk_bits(args)
+    assert bits_.shape[1] > 4 and ((bits_ > 0).sum(1) == 2).all()
+    frame_pack_equal(args)
+
+
+def test_frame_pack_kernel_full_width_symbols(dev):
+    """32-bit symbols: a 24-bit verbatim channel beside escapes at k = 31
+    and Rice codes of exactly 32 bits, 32-bit header symbols, in frames
+    of several chunks."""
+    n, porders = 4608, (0, 1, 2, 3, 4, 5)
+    args = frame_pack_inputs(dev, 2, 2, n, porders, 24, kind=[[2, 1], [1, 1]],
+                             hdr_lengths=[32, 32])
+    rng = np.random.default_rng(5)
+    nseg = args[8].shape[-1]
+    ks = np.where(np.arange(nseg) % 2, 31 | 128, 20)  # escapes, Rice k = 20
+    args[8][0, 0] = torch.from_numpy(ks.astype(np.int32)).to(dev)
+    psize = args[12]
+    k_sample = np.repeat(ks & 31, psize)
+    zz = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    rice_zz = (11 << 20) | (zz & ((1 << 20) - 1))     # 11 + 1 + 20 bits
+    zz = np.where(k_sample == 20, rice_zz, zz).astype(np.uint32)
+    zz[:int(args[10][0, 0])] = 0
+    args[6][0, 0] = torch.from_numpy(zz.view(np.int32)).to(dev)
+    assert chunk_bits(args).shape[1] > 1
+    frame_pack_equal(args)
+
+
+@pytest.mark.parametrize("n,porders,bits", [
+    (4608, (0, 1, 2, 3, 4, 5), 16), (16384, tuple(range(15)), 24)])
+def test_frame_pack_kernel_one_frame(dev, n, porders, bits):
+    frame_pack_equal(frame_pack_inputs(dev, 1, 2, n, porders, bits))

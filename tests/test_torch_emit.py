@@ -197,8 +197,8 @@ def test_frame_pack_plain_matches_flacx_chain(case):
 
 def kernel_slot_walk(n: int, psize_min: int) -> tuple:
     """The ``frame_pack`` kernel's walk of one channel's param and sample
-    slots (``csrc/frame_pack.cu`` ``symbol``): per slot, whether it is a
-    param slot, and its param or sample index."""
+    slots (``csrc/frame_pack.cu`` ``walk_at`` / ``walk_step``): per slot,
+    whether it is a param slot, and its param or sample index."""
     extra, mult = emit.general_layout_tables(n, psize_min)
     u = np.arange(n + n // psize_min)
     seg, r = u // (psize_min + 1), u % (psize_min + 1)

@@ -164,9 +164,10 @@ def test_unsupported_configs_raise(changes, later):
 
 def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     """Partition counts past ``rice_stats``' shared memory and frames past
-    ``frame_pack``'s are no longer refused: ``rice_stats`` cuts a row into
-    more segments and ``frame_pack`` picks its other route, each from the
-    configuration alone, and the configuration check accepts them."""
+    a block's shared memory are not refused: ``rice_stats`` cuts a row
+    into more segments, from the configuration alone, and ``frame_pack``
+    packs chunks of a fixed slot count whatever the frame's size; the
+    configuration check accepts them."""
     from flacx_torch.encoder import check_supported
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import rice_stats as k_rs
@@ -180,8 +181,10 @@ def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     stereo = EncoderConfig(**hires)
     six = EncoderConfig(**hires, channels=6)
     assert (stereo.max_frame_bytes, six.max_frame_bytes) == (102656, 295168)
-    assert k_fp.route(stereo.max_frame_bytes) == "smem"
-    assert k_fp.route(six.max_frame_bytes) == "global"
+    # past a Hopper block's 232,448 bytes: one route all the same, a
+    # chunk's words (4 B a slot at most) in 48 KB of static shared memory
+    assert stereo.max_frame_bytes < 232448 < six.max_frame_bytes
+    assert 4 * k_fp.CHUNK_SLOTS <= 48 * 1024
     assert k_rs.segment_log2(stereo.block_size, max(stereo.porders),
                              stereo.kmax) == 6
     for cfg in (many, stereo, six):

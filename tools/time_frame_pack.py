@@ -5,17 +5,20 @@ more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
         [--kernel {frame_pack,lpc_allorder,rice_stats} ...]
         [--path {headline,best4608,best2304,best1152,hires,hires6,
-                 file_best24} ...]
+                 file_default,file_b1152,file_best24} ...]
 
 Encodes one batch of each path (the data of ``chip_smoke.py``: the
 1024-frame headline batch at block 4608; the best-compression batch at
-block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch; ``file_best24``
-the 256-frame ``--best`` batches of the 24-bit master at blocks 4608, 2304
-and 1152) with the ``flacx_torch`` package found in ``DIR`` (default:
-this checkout), keeps the arguments of each kernel's first launch, checks
-the kernel against its plain version, and prints one JSON line per batch:
-the tree, the median kernel time of ``--reps`` launches under the
-profiler for each kernel, and the card's name and power limit.  Run it on
+block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch;
+``file_default`` and ``file_b1152`` a 256-frame batch of the CD rip at
+the defaults and at ``-b 1152``; ``file_best24`` the 256-frame ``--best``
+batches of the 24-bit master at blocks 4608, 2304 and 1152) with the
+``flacx_torch`` package found in ``DIR`` (default: this checkout), keeps
+the arguments of each kernel's first launch, checks the kernel against
+its plain version, and prints one JSON line per batch: the tree, the
+median kernel time of ``--reps`` launches under the profiler for each
+kernel (the kernels of one wrapper summed), and the card's name and
+power limit.  Run it on
 two checkouts in one call (A, B, B, A) to compare two versions of a
 kernel at these shapes.  Defaults: ``frame_pack`` at the headline.  Needs
 CUDA.
@@ -31,7 +34,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
-         "file_best24")
+         "file_default", "file_b1152", "file_best24")
 #: kernel -> (a substring of its CUDA symbol in every version, module,
 #: wrapper, plain version)
 KERNELS = {
@@ -64,6 +67,12 @@ def batches(cs, path: str):
         enc = BatchEncoder(cs.hires_config(channels), batch_frames=frames)
         yield path, enc, cs.blocks_of(cs.hires_pcm(channels, frames),
                                       cs.HIRES_N, np.int32)
+    elif path in ("file_default", "file_b1152"):
+        bs = cs.N if path == "file_default" else 1152
+        cd = cs.file_inputs()["cd"][0]
+        enc = BatchEncoder(EncoderConfig(block_size=bs),
+                           batch_frames=cs.FILE_BATCH)
+        yield path, enc, cs.blocks_of(cd[:bs * cs.FILE_BATCH], bs)
     else:
         assert path == "file_best24", path
         master = cs.file_inputs()["master"][0]
