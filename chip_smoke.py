@@ -58,12 +58,13 @@ BEST_WINDOWS = ("tukey(0.5)", "hann", "flattop")
 WASTED_FRAMES = 64
 #: H100 SXM data-sheet peaks (NVIDIA, dense, 700 W): HBM bytes/s, the
 #: int8 tensor-core rate, and the non-tensor f32 rate, used for every
-#: scalar ALU operation of the kernels; int32 multiply-adds and f64
-#: multiplies or adds issue at 64 per clock per SM (132 SMs, 1.98 GHz).
+#: scalar ALU operation of the kernels; f64 instructions (a multiply, an
+#: add or a fused multiply-add) issue at 64 per clock per SM (132 SMs,
+#: 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
-INT32_MAD_PER_S = F64_OPS_PER_S = 64 * 132 * 1.98e9
+F64_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def synth_pcm(rng: np.random.Generator, frames: int) -> np.ndarray:
@@ -277,20 +278,26 @@ def mac_lengths(taps) -> dict:
     return dict(zip(keys.tolist(), counts.tolist()))
 
 
+def limb_ops(n: int, taps, limbs: int) -> int:
+    """Operations of an exact integer MAC done as 8-bit limb products on
+    the tensor cores (the card's fastest exact route): each row's nonzero
+    taps (``taps [..., K]``) times its ``n`` samples, times ``limbs``
+    sample limbs and two tap limbs in a row whose taps pass [-128, 127],
+    two operations a multiply-add."""
+    nonzero = (taps != 0).sum(-1)
+    two = ((taps < -128) | (taps > 127)).any(-1)
+    return 2 * int((nonzero * (1 + two.long())).sum()) * n * limbs
+
+
 def allorder_work(x, qcoefs, limbs: int, wide: bool) -> list:
     """``lpc_allorder``'s least work on this run's data, as ``(operations,
-    rate)`` pairs: each order's multiply-adds of its nonzero taps, two
-    operations each, times the limb products (``limbs`` sample limbs, two
-    tap limbs in a row whose taps pass [-128, 127]) at the int8 tensor
-    rate; and the epilogue of every (sample, order) at the scalar rate:
-    8 operations (shift, subtract, abs, max, zigzag two, 64-bit sum two),
-    16 in the wide mode's int64."""
-    n = x.shape[-1]
-    nonzero = (qcoefs != 0).flatten(-2).sum(-1)
-    two = ((qcoefs < -128) | (qcoefs > 127)).flatten(-2).any(-1)
-    macs = int((nonzero * (1 + two.long())).sum()) * n * limbs
+    rate)`` pairs: the limb products of every order's nonzero taps
+    (:func:`limb_ops`) at the int8 tensor rate; and the epilogue of every
+    (sample, order) at the scalar rate: 8 operations (shift, subtract,
+    abs, max, zigzag two, 64-bit sum two), 16 in the wide mode's int64."""
     epilogue = x.numel() * qcoefs.shape[-2] * (16 if wide else 8)
-    return [(2 * macs, INT8_TENSOR_OPS_PER_S), (epilogue, SCALAR_OPS_PER_S)]
+    return [(limb_ops(x.shape[-1], qcoefs.flatten(-2), limbs),
+             INT8_TENSOR_OPS_PER_S), (epilogue, SCALAR_OPS_PER_S)]
 
 
 def frame_pack_bytes(args) -> int:
@@ -313,6 +320,41 @@ def frame_pack_bytes(args) -> int:
             + 12 * kind.numel() + hdr_v.shape[0] * (max_frame_bytes + 4))
 
 
+def autocorr_library_ms(torch, x, window, max_lag: int) -> float | None:
+    """The f64 autocorrelation of every window as one grouped
+    ``conv1d`` (a yardstick, never on the main path): ``u`` the windowed
+    f64 rows without their last sample, ``u_pad`` those padded with
+    ``max_lag`` zeros on the right; ``autoc[l] = Σ_j u[j]·u[j+l]`` up to
+    summation order.  Held against the plain version within rtol 1e-12
+    (or 1e-12 of autoc[0] near zero); returns its median ms, or None where
+    cuDNN refuses the shape (printed)."""
+    from flacx_torch.ops.lpc import autocorrelate
+
+    wins = window.reshape(-1, x.shape[-1])
+    u = (x.double()[..., None, :-1] * wins[:, :-1]).reshape(-1, 1,
+                                                            x.shape[-1] - 1)
+    u_pad = torch.nn.functional.pad(u, (0, max_lag)).reshape(1, len(u), -1)
+
+    def conv():
+        return torch.nn.functional.conv1d(u_pad, u, groups=len(u))
+    try:
+        got = conv().reshape(-1, max_lag + 1)
+    except RuntimeError as e:
+        print(f"conv1d yardstick refused at {tuple(u.shape)}: {e}",
+              flush=True)
+        return None
+    ref = torch.stack([autocorrelate(x, max_lag, window=w) for w in wins],
+                      dim=-2).reshape(-1, max_lag + 1)
+    err = (got - ref).abs()
+    if not bool((err <= 1e-12 * (ref.abs() + ref[:, :1].abs())).all()):
+        raise AssertionError("conv1d yardstick out of tolerance: max err "
+                             f"{err.max().item()}")
+    ms = median_ms(torch, conv, 10)
+    print(f"conv1d yardstick {tuple(u.shape)}: {ms:.4f} ms, max err "
+          f"{err.max().item()}", flush=True)
+    return ms
+
+
 def hold(torch, name: str, wrapper: str, args: tuple,
          replaces: str | None = None) -> dict:
     """The JSON row of the kernel behind ``wrapper`` (a key of
@@ -332,7 +374,9 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         x, window, max_lag = args[:3]
         n = x.shape[-1]
         rows = x[..., 0].numel()
-        adds = rows * n * (max_lag + 1)
+        # every window's work: W windows of [W, n], one of [n]
+        windowed = rows * n * (window.shape[0] if window.dim() > 1 else 1)
+        adds = windowed * (max_lag + 1)
         if window.dtype == torch.float64:
             # the same f64 products summed in another order: rtol 1e-12,
             # or 1e-12 of autoc[0] (n·eps64·autoc[0] bounds the error) near
@@ -340,11 +384,14 @@ def hold(torch, name: str, wrapper: str, args: tuple,
             # add per lag.  The JAX package runs this f64 analysis as XLA
             # (flacx/ops/lpc.py:143-150); the f64 mode belongs to the port
             # of the f32 TPU kernel.
-            return kernel_row(
+            row = kernel_row(
                 torch, name, "analysis_kernel", k_an.analysis,
                 k_an.analysis_plain, args, autoc_close(1e-12, 1e-12),
-                [(2 * adds + rows * n, F64_OPS_PER_S)],
+                [(2 * adds + windowed, F64_OPS_PER_S)],
                 csrc + "analysis.cu", "flacx/kernels/autocorr_tile.py:124")
+            row["library_ms"] = autocorr_library_ms(torch, x, window,
+                                                    max_lag)
+            return row
         # f64 sums of the same f32 products in another order: within rtol
         # 1e-9, or n·eps64·autoc[0] (bounds Σ|products|) near zero; the
         # f64 adds at the f64 rate, the f32 products and integer work at
@@ -352,7 +399,8 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         return kernel_row(
             torch, name, "analysis_kernel", k_an.analysis,
             k_an.analysis_plain, args, autoc_close(1e-9, 1e-12),
-            [(adds, F64_OPS_PER_S), (adds + rows * n * 26, SCALAR_OPS_PER_S)],
+            [(adds, F64_OPS_PER_S),
+             (adds + windowed + rows * n * 26, SCALAR_OPS_PER_S)],
             csrc + "analysis.cu",
             "flacx/kernels/autocorr_tile.py:124 + "
             "flacx/kernels/zzsum_tile.py:115")
@@ -363,12 +411,15 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         xs, taps = args[0], args[1]
         wide = k_lr.mac_width(args[4], args[5]) == "wide"
         # one multiply-add per sample and nonzero tap of its row: the int32
-        # MAC's count as two scalar operations, a wide one (IMAD.WIDE) as
-        # two int32 multiply-adds; six scalar operations a sample besides
-        macs = int((taps != 0).sum()) * xs.shape[-1]
-        work = ([(2 * macs, INT32_MAD_PER_S),
-                 (xs.numel() * 6, SCALAR_OPS_PER_S)] if wide else
-                [(2 * macs + xs.numel() * 6, SCALAR_OPS_PER_S)])
+        # MAC's as two scalar operations and six a sample besides; the wide
+        # MAC's as limb products at the int8 tensor rate, as
+        # lpc_allorder's, and twelve scalar operations a sample (the six
+        # in int64)
+        work = ([(limb_ops(xs.shape[-1], taps, k_la.sample_limbs(args[4])),
+                  INT8_TENSOR_OPS_PER_S),
+                 (xs.numel() * 12, SCALAR_OPS_PER_S)] if wide else
+                [(2 * int((taps != 0).sum()) * xs.shape[-1]
+                  + xs.numel() * 6, SCALAR_OPS_PER_S)])
         return kernel_row(
             torch, name,
             f"lpc_residual_kernel<{mode}, {str(wide).lower()}>",
@@ -574,7 +625,8 @@ BEST_PATH = ("analysis", "lpc_allorder", "lpc_residual_zz", "rice_stats",
 def best_rows(torch, bs: int, enc, planar: np.ndarray) -> list[dict]:
     """Every kernel of the best path at block ``bs`` against its plain
     version, on the arguments of its first launch in one batch: the f64
-    analysis of the first window, its every-order statistics, the zigzag
+    analysis of the three windows (with the grouped ``conv1d`` yardstick),
+    the first window's every-order statistics, the zigzag
     residual and Rice statistics of the four virtual channels, and the
     frame packing (the general layout at 1152)."""
     captured, restore = capture_main_path_inputs(BEST_PATH)
@@ -590,7 +642,8 @@ def best_rows(torch, bs: int, enc, planar: np.ndarray) -> list[dict]:
                 else "frame_pack"}.get(wrapper, wrapper)
         args = captured.pop(wrapper)
         if wrapper == "analysis":
-            assert args[1].dtype == torch.float64 and args[3]
+            assert args[1].shape == (len(BEST_WINDOWS), bs), args[1].shape
+            assert args[1].dtype == torch.float64
         if wrapper in ("lpc_allorder", "lpc_residual_zz", "rice_stats"):
             assert args[0].shape == (B, 4, bs), args[0].shape
         row = hold(torch, f"{name}@{bs}", wrapper, args)
@@ -616,6 +669,8 @@ def best_phase(torch, pcm: np.ndarray) -> list[dict]:
                                      BEST_PATH)
         torch.cuda.synchronize()
         batches = -(-len(planar) // B)
+        if counts["analysis"] != batches:  # every window in one launch
+            raise AssertionError(f"best {bs}: launches {counts}")
         for row in bs_rows:
             row["launches"] = counts[row.pop("wrapper")]
             row["batches"] = batches
@@ -1064,7 +1119,8 @@ def file_phase(torch) -> list[dict]:
                 if k_lr.mac_width(cfg.eff_bps, cfg.sum_taps_max) != "wide":
                     raise AssertionError("best: not the wide MAC")
                 for b in blocks:
-                    if per_block[b]["lpc_allorder"] != 3 * batches[b]:
+                    if (per_block[b]["lpc_allorder"] != 3 * batches[b]
+                            or per_block[b]["analysis"] != batches[b]):
                         raise AssertionError(f"best {b}: launches "
                                              f"{per_block[b]}")
             seconds = len(pcm) / rate
@@ -1125,7 +1181,8 @@ def file_phase(torch) -> list[dict]:
         group = [file_row(f"lpc_allorder_wide@{b}", "best", "lpc_allorder", b,
                           args)]
         args = best[("analysis", b)]
-        assert args[1].dtype == torch.float64 and args[3]
+        assert args[1].shape == (len(BEST_WINDOWS), b), args[1].shape
+        assert args[1].dtype == torch.float64
         group.append(file_row(f"analysis_f64@file_best_{b}", "best",
                               "analysis", b, args))
         args = best[("lpc_residual_zz", b)]

@@ -200,14 +200,15 @@ def analysis_dtype(cfg: EncoderConfig) -> torch.dtype:
 
 
 def analysis_windows(cfg: EncoderConfig, device: torch.device,
-                     ) -> tuple[torch.Tensor, ...]:
-    """One ``[block_size]`` apodization window per name in
+                     ) -> torch.Tensor:
+    """The apodization windows ``[W, block_size]``, one row per name in
     ``cfg.windows``, in the analysis float type, on ``device``."""
     np_dtype = np.float64 if analysis_dtype(cfg) == torch.float64 \
         else np.float32
-    return tuple(window_from_numpy(apodization_window_np(name, cfg.block_size)
-                                   .astype(np_dtype)).to(device)
-                 for name in cfg.windows)
+    return torch.stack([
+        window_from_numpy(apodization_window_np(name, cfg.block_size)
+                          .astype(np_dtype))
+        for name in cfg.windows]).to(device)
 
 
 def shared_trailing_zeros(x: torch.Tensor) -> torch.Tensor:
@@ -229,13 +230,13 @@ def _gather_pair(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
-                  windows: torch.Tensor | tuple[torch.Tensor, ...] | None
-                  = None) -> dict:
+                  windows: torch.Tensor | None = None) -> dict:
     """pcm int16/int32 ``[B, channels, N]`` → frames ``[B, max_bytes]``.
 
     ``windows`` holds one ``[N]`` apodization window per name in
-    ``cfg.windows``, in the analysis float type, on ``pcm``'s device (a
-    lone tensor for one window); None builds them from ``cfg``.
+    ``cfg.windows`` (``[W, N]``; a lone ``[N]`` for one window), in the
+    analysis float type, on ``pcm``'s device; None builds them from
+    ``cfg``.
     Returns a dict of device tensors: ``bytes`` (u8), ``length``, ``kind``,
     ``channel_code`` and ``subframe_bits``.
     """
@@ -250,11 +251,9 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     dev = pcm.device
     if windows is None:
         windows = analysis_windows(cfg, dev)
-    elif isinstance(windows, torch.Tensor):
-        windows = (windows,)
+    windows = windows.reshape(-1, n)
     adt = analysis_dtype(cfg)
-    if len(windows) != len(cfg.windows) or any(
-            w.dtype != adt for w in windows):
+    if len(windows) != len(cfg.windows) or windows.dtype != adt:
         raise ValueError(f"expected {len(cfg.windows)} {adt} windows")
 
     def ar(*args):
@@ -292,13 +291,12 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
                 and not emit.tile_layout_ok(n, psize_min)
                 and fused_int32_ok(cfg.eff_bps, sum_taps_max))
     best = None
-    fzz_sum = None
-    for name, window in zip(cfg.windows, windows):
-        # the fixed-order sums do not depend on the window: first one only
-        autoc, fsums = analysis(x_v, window, p, fixed_sums=fzz_sum is None)
-        fzz_sum = fzz_sum if fsums is None else fsums
-        if not p:
-            break
+    # every window's autocorrelation in one call (each window's as flacx
+    # computes it alone), and the fixed-order sums, which do not depend on
+    # the window; without LPC only the sums are used
+    autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p)
+    for wi, name in enumerate(cfg.windows if p else ()):
+        autoc = autoc_w[:, :, wi]
         taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
         # Levinson returns the analysis polynomial a[1:]; the prediction
         # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation

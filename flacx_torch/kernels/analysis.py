@@ -1,5 +1,6 @@
-"""The ``analysis`` kernel: windowed autocorrelation and the five
-fixed-order zigzag sums of every row, from one read of the row.
+"""The ``analysis`` kernel: windowed autocorrelation under one or several
+windows and the five fixed-order zigzag sums of every row, from one read
+of the row.
 
 Replaces the TPU kernels ``flacx/kernels/autocorr_tile.py::autocorr_tiled``
 and ``flacx/kernels/zzsum_tile.py::fixed_order_sums``; its f64 mode is the
@@ -17,13 +18,28 @@ from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.ops.fixedpred import fixed_order_zz_sums
 from flacx_torch.ops.lpc import autocorrelate
 
+#: samples of a block's pass (``THREADS * RUN`` of ``csrc/analysis.cu``)
+PASS = 1152
+#: the largest segment of a row one block takes
+SEG_MAX = 4 * PASS
+
+
+def segment_size(n: int) -> int:
+    """Samples of one block's segment of a row of ``n``: whole passes, at
+    most :data:`SEG_MAX`."""
+    return min(SEG_MAX, -(-n // PASS) * PASS)
+
 
 def analysis_plain(x: torch.Tensor, window: torch.Tensor, max_lag: int,
                    fixed_sums: bool = True,
                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain version of :func:`analysis`."""
-    return (autocorrelate(x, max_lag, window=window),
-            fixed_order_zz_sums(x) if fixed_sums else None)
+    if window.dim() == 1:
+        autoc = autocorrelate(x, max_lag, window=window)
+    else:
+        autoc = torch.stack([autocorrelate(x, max_lag, window=w)
+                             for w in window], dim=-2)
+    return autoc, fixed_order_zz_sums(x) if fixed_sums else None
 
 
 def analysis(x: torch.Tensor, window: torch.Tensor, max_lag: int,
@@ -31,13 +47,15 @@ def analysis(x: torch.Tensor, window: torch.Tensor, max_lag: int,
              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Autocorrelation lags ``0..max_lag`` of ``x * window`` in the
     window's float type (last sample dropped, products in that type, f64
-    sums) and, if ``fixed_sums``, the fixed-order zigzag sums of ``x``.
+    sums) under each window and, if ``fixed_sums``, the fixed-order
+    zigzag sums of ``x``.
 
     Args:
       x: int32 samples ``[..., n]``.
-      window: f32 or f64 ``[n]``.
+      window: f32 or f64, one window ``[n]`` or ``W`` windows ``[W, n]``.
     Returns:
-      ``(autoc f64 [..., max_lag+1], fsums int64 [..., 5] or None)``.
+      ``(autoc f64 [..., max_lag+1] or [..., W, max_lag+1], fsums int64
+      [..., 5] or None)``.
     """
     if x.device.type == "cpu":
         return analysis_plain(x, window, max_lag, fixed_sums)
@@ -46,19 +64,29 @@ def analysis(x: torch.Tensor, window: torch.Tensor, max_lag: int,
     check(x, "x", torch.int32)
     if window.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"window: dtype {window.dtype}, expected f32 or f64")
-    check(window, "window", window.dtype, (n,), x.device)
-    if not 0 <= max_lag <= 32 or n < 2:
-        raise ValueError(f"analysis: max_lag {max_lag} / n {n} out of range")
-    autoc = torch.empty((*lead, max_lag + 1), dtype=torch.float64,
+    wins = window.reshape(-1, n) if window.dim() == 1 else window
+    check(wins, "window", window.dtype, (wins.shape[0], n), x.device)
+    if not 0 <= max_lag <= 32 or n < 2 or not wins.shape[0]:
+        raise ValueError(f"analysis: max_lag {max_lag} / n {n} / "
+                         f"{wins.shape[0]} windows out of range")
+    rows, nwin, lags = math.prod(lead), wins.shape[0], max_lag + 1
+    autoc = torch.empty((rows, nwin, lags), dtype=torch.float64,
                         device=x.device)
     fsums = (torch.empty((*lead, 5), dtype=torch.int64, device=x.device)
              if fixed_sums else None)
-    launch(bind("analysis", "flacx_analysis", 4, 5),
-           [x, window, autoc, fsums],
-           [math.prod(lead), n, max_lag, int(window.dtype == torch.float64),
-            int(fixed_sums)], "analysis")
+    seg = segment_size(n)
+    scratch = tickets = None
+    if seg < n:
+        scratch = torch.empty((rows, -(-n // seg), nwin * lags + 5),
+                              dtype=torch.float64, device=x.device)
+        tickets = torch.zeros(rows, dtype=torch.int32, device=x.device)
+    launch(bind("analysis", "flacx_analysis", 6, 7),
+           [x, wins, autoc, fsums, scratch, tickets],
+           [rows, n, max_lag, nwin, int(window.dtype == torch.float64),
+            int(fixed_sums), seg], "analysis")
     analysis.launches += 1
-    return autoc, fsums
+    shape = (*lead, lags) if window.dim() == 1 else (*lead, nwin, lags)
+    return autoc.reshape(shape), fsums
 
 
 analysis.launches = 0

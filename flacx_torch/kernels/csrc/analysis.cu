@@ -1,57 +1,69 @@
-// analysis: windowed autocorrelation (lags 0..max_lag) and the five
-// fixed-order zigzag sums of every row, from ONE read of the row.
+// analysis: windowed autocorrelation (lags 0..max_lag) of every row under
+// one or several windows, and the five fixed-order zigzag sums of every
+// row, from ONE read of the row.
 //
 // Replaces the TPU kernels flacx/kernels/autocorr_tile.py::autocorr_tiled
 // and flacx/kernels/zzsum_tile.py::fixed_order_sums.  Its f64 mode is the
 // counterpart of the f64 analysis that the JAX package runs as XLA
 // (flacx/ops/lpc.py:143-150; the TPU kernel takes f32 only).
 //
-// Semantics (flacx_torch.ops.lpc.autocorrelate and
+// Semantics (flacx_torch.ops.lpc.autocorrelate under each window, and
 // flacx_torch.ops.fixedpred.fixed_order_zz_sums), with T = float or double
-// the window's type:
+// the windows' type:
 //   w[i]        = T(x[i]) * window[i]                         (T, rounded)
 //   autoc[l]    = sum_{i=l}^{n-2} (double) T(w[i-l] * w[i])    (f64 sums)
 //   fsums[o]    = sum_{i>=o} zigzag(D^o x[i])                  (int64 sums)
 // with D^o the o-th difference in int32.  Products use __fmul_rn /
 // __dmul_rn and the f64 sums __dadd_rn, so no multiply is fused into an
 // add and each product rounds exactly as the plain version's; the sums
-// differ from it only in summation order.  With fixed = 0 the fixed-order
-// sums are skipped (later windows of a multi-window analysis).
+// differ from it only in summation order, which is fixed: a batch gives
+// the same bits on every run.  With fixed = 0 the fixed-order sums are
+// skipped.
 //
 // Widths: the kernel serves every path up to 24-bit samples, where the
 // stereo side channel is 25 bits (eff_bps 25).  T(x) is exact there: an
 // eff_bps-bit sample has |x| <= 2^(eff_bps-1) = 2^24, which f32 holds
 // exactly.  The int32 differences are exact up to eff_bps 26: |D^o x| <=
 // 2^o * 2^(eff_bps-1) <= 2^(eff_bps+3) for o <= 4, so |D^4 x| <= 2^29 and
-// its zigzag fits int32; the sums are int64.  (flacx leaves its TPU kernel
-// at eff_bps > 17, where its int32 tile partials could wrap; there is no
-// such partial here.)
+// its zigzag fits int32; the sums are int64.
 //
-// Bound on the card.  f32: bytes.  Each int32 sample is read once (the
-// window is 4 B/sample shared by all rows); at the headline batch, 1024
-// frames x 4 virtual channels x 4608 samples = 75.5 MB, 22.5 us at
-// 3.35 TB/s; the arithmetic (13 f32 products + 13 f64 adds + ~20 int ops
-// per sample) stays below that.  f64: operations.  At lag 12, 13 f64
-// products and 13 f64 adds per sample plus the window multiply: 4.9e8 f64
-// operations at the same shape, 29 us at 64 per clock per SM (132 SMs,
-// 1.98 GHz), against the same 22.5 us of bytes.  At hi-res (128 frames x
-// 4 virtual channels x 16384 samples, lag 32, f32) the bytes are 33.6 MB,
-// 10 us.
+// Bound on the card: operations.  f64: per sample and window, the window
+// multiply and max_lag + 1 products and adds on the f64 pipe (64 per clock
+// per SM, 132 SMs, 1.98 GHz): at the best path's 1024 frames x 4 virtual
+// channels x 4608 samples, lag 12 and three windows, 0.092 ms, against
+// 0.023 ms for the bytes (the row read once).  f32: the f64 adds, with
+// the f32 products and the integer work at the scalar rate.  Each f32
+// product widens to f64 before its add, which the f32 rows pay for.
 //
-// Design: one block per row.  The row streams through shared memory in
-// tiles of TILE samples with a halo of max(P, 4) previous samples, so
-// every lag product and every difference reads shared memory only.  Each
-// thread keeps its partial sums in registers (lags unrolled to the
-// template bound); a warp-shuffle then cross-warp reduction ends the row.
-// One launch per window: the lag sums of several windows in f64 registers
-// would spill at order 32.
+// Design: a grid over (segment of `seg` samples, row), seg a multiple of
+// PASS = THREADS * RUN up to 4608 (shared memory sized to the segment).
+// Each block stages its segment once, coalesced, as int32 in shared memory
+// with a halo of P + 4 samples before it (zero before the row start, which
+// gives the i >= l rule of the sums).  Then, for each window in turn, it
+// writes the windowed values w[i] into shared memory (zero from sample
+// n - 1 on: the last sample takes part in no product) and each thread
+// takes a run of RUN consecutive samples per pass: it reads the RUN + P
+// values its run needs once, forms the RUN x (P+1) products from registers
+// and keeps the P+1 sums in registers (RUN is odd, so a warp's strided
+// reads hit distinct banks).  A window's sums are reduced (a butterfly in
+// each warp that halves the values a lane holds at each step, then the
+// warps in order) and written out before the next window starts, so the
+// registers hold one window's sums at any P.  The fixed-order sums run
+// with the first window, from the staged int32 samples.  A row of one
+// segment writes its result; a row of several writes each segment's
+// partial sums to scratch, and the row's last block (an atomic ticket
+// after __threadfence) adds them in segment order: no float atomics, the
+// same bits on every run.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 1024;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int RUN = 9;                  // consecutive samples of a thread
+constexpr int PASS = THREADS * RUN;     // samples of a block's pass: 1152
+constexpr int SEG_LIMIT = 4 * PASS;     // the largest segment taken
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -70,118 +82,257 @@ __device__ __forceinline__ double from_int<double>(int32_t v) {
   return __int2double_rn(v);
 }
 
+struct Args {
+  const int32_t* x;  // [rows, n]
+  const void* win;   // [nwin, n], T
+  double* autoc;     // [rows, nwin, L+1]
+  long long* fsums;  // [rows, 5] (fixed only)
+  double* scratch;   // [rows, nseg, nwin * (L+1) + 5] partials (nseg > 1)
+  int* tickets;      // [rows] zeros (nseg > 1)
+  int n, max_lag, nwin, fixed, seg, nseg;
+};
+
+// Sums v[0..V) over the warp, V a power of two <= 32, by halving: at
+// each step a lane keeps half of its values and adds its partner's copy of
+// that half, so V - 1 shuffles replace V * 5.  Returns value lane >> (5 -
+// log2 V)'s sum (lanes that differ only in the low bits hold the same).
+// Every loop has a constant trip count, so v stays in registers.
+template <int V>
+__device__ __forceinline__ double reduce_scatter(double (&v)[V], int lane) {
+  constexpr int LOG2V = V == 32 ? 5 : V == 16 ? 4 : V == 8 ? 3 : 0;
+  static_assert(LOG2V, "V is 8, 16 or 32");
+#pragma unroll
+  for (int step = 0; step < LOG2V; ++step) {
+    const int h = V >> (step + 1), b = 16 >> step;
+    const bool hi = lane & b;
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      if (k < h) {
+        const double send = hi ? v[k] : v[k + h];
+        const double keep = hi ? v[k + h] : v[k];
+        v[k] = __dadd_rn(keep, __shfl_xor_sync(flacx::FULL_MASK, send, b));
+      }
+    }
+  }
+  double s = v[0];
+#pragma unroll
+  for (int step = LOG2V; step < 5; ++step)
+    s = __dadd_rn(s, __shfl_xor_sync(flacx::FULL_MASK, s, 16 >> step));
+  return s;
+}
+
+// Shared memory of a block: the windowed values and the samples of its
+// segment, each with the halo.
 template <typename T, int MAXLAG>
-__global__ void __launch_bounds__(THREADS)
-analysis_kernel(const int32_t* __restrict__ x, const T* __restrict__ win,
-                double* __restrict__ autoc, long long* __restrict__ fsums,
-                int n, int max_lag, int fixed) {
-  constexpr int HALO = MAXLAG > 4 ? MAXLAG : 4;
-  constexpr int WARPS = THREADS / 32;
-  __shared__ T ws[HALO + TILE];
-  __shared__ int32_t xs[HALO + TILE];
-  __shared__ double red_d[WARPS][MAXLAG + 1];
-  __shared__ long long red_i[WARPS][5];
+constexpr int smem_bytes(int seg) {
+  return (MAXLAG + 4 + seg) * (int)(sizeof(T) + sizeof(int32_t));
+}
 
-  const int row = blockIdx.x;
-  const int32_t* xr = x + (size_t)row * n;
-  double acc[MAXLAG + 1];
-  long long fs[5];
+// A run's fixed-order sums from d0 = x[i0 - 4 .. i0 + RUN - 1]: the o-th
+// differences by the chain d_o[i] = d_{o-1}[i] - d_{o-1}[i-1], their
+// zigzags (< 2^30) added as unsigned.  EDGE: the run meets the row's start
+// (no D^o x[i] for i < o) or its end.
+template <bool EDGE>
+__device__ __forceinline__ void fixed_sums(const int32_t (&d0)[RUN + 4],
+                                           int i0, int n, long long (&fs)[5]) {
 #pragma unroll
-  for (int l = 0; l <= MAXLAG; ++l) acc[l] = 0.0;
+  for (int r = 0; r < RUN; ++r) {
+    const int i = i0 + r;
+    if (EDGE && i >= n) break;
+    const int32_t a0 = d0[r + 4], a1 = d0[r + 3], a2 = d0[r + 2];
+    const int32_t a3 = d0[r + 1], a4 = d0[r];
+    const int32_t d10 = a0 - a1, d11 = a1 - a2, d12 = a2 - a3, d13 = a3 - a4;
+    const int32_t d20 = d10 - d11, d21 = d11 - d12, d22 = d12 - d13;
+    const int32_t d30 = d20 - d21, d31 = d21 - d22;
+    const int32_t d40 = d30 - d31;
+    const int32_t d[5] = {a0, d10, d20, d30, d40};
 #pragma unroll
-  for (int o = 0; o < 5; ++o) fs[o] = 0;
-
-  for (int t0 = 0; t0 < n; t0 += TILE) {
-    for (int j = threadIdx.x; j < HALO + TILE; j += THREADS) {
-      const int i = t0 - HALO + j;
-      const bool in = i >= 0 && i < n;
-      const int32_t v = in ? xr[i] : 0;
-      xs[j] = v;
-      ws[j] = in ? mul_rn(from_int<T>(v), win[i]) : T(0);
-    }
-    __syncthreads();
-    const int m = min(TILE, n - t0);
-    for (int j = threadIdx.x; j < m; j += THREADS) {
-      const int i = t0 + j;
-      const int c = HALO + j;
-      if (i <= n - 2) {  // the last sample takes part in no product
-        const T wi = ws[c];
-#pragma unroll
-        for (int l = 0; l <= MAXLAG; ++l)
-          if (l <= max_lag && i >= l)
-            acc[l] = __dadd_rn(acc[l], (double)mul_rn(ws[c - l], wi));
-      }
-      if (fixed) {
-        // o-th differences by the chain d_o[i] = d_{o-1}[i] - d_{o-1}[i-1]
-        const int32_t a0 = xs[c], a1 = xs[c - 1], a2 = xs[c - 2];
-        const int32_t a3 = xs[c - 3], a4 = xs[c - 4];
-        const int32_t d10 = a0 - a1, d11 = a1 - a2, d12 = a2 - a3,
-                      d13 = a3 - a4;
-        const int32_t d20 = d10 - d11, d21 = d11 - d12, d22 = d12 - d13;
-        const int32_t d30 = d20 - d21, d31 = d21 - d22;
-        const int32_t d40 = d30 - d31;
-        fs[0] += flacx::zigzag32(a0);
-        if (i >= 1) fs[1] += flacx::zigzag32(d10);
-        if (i >= 2) fs[2] += flacx::zigzag32(d20);
-        if (i >= 3) fs[3] += flacx::zigzag32(d30);
-        if (i >= 4) fs[4] += flacx::zigzag32(d40);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int l = 0; l <= MAXLAG; ++l) {
-    const double v = flacx::warp_sum(acc[l]);
-    if (lane == 0) red_d[warp][l] = v;
-  }
-#pragma unroll
-  for (int o = 0; o < 5; ++o) {
-    const long long v = flacx::warp_sum(fs[o]);
-    if (lane == 0) red_i[warp][o] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x <= max_lag) {
-    double s = 0.0;
-    for (int w = 0; w < WARPS; ++w) s = __dadd_rn(s, red_d[w][threadIdx.x]);
-    autoc[(size_t)row * (max_lag + 1) + threadIdx.x] = s;
-  } else if (fixed && threadIdx.x >= 64 && threadIdx.x < 69) {
-    const int o = threadIdx.x - 64;
-    long long s = 0;
-    for (int w = 0; w < WARPS; ++w) s += red_i[w][o];
-    fsums[(size_t)row * 5 + o] = s;
+    for (int o = 0; o < 5; ++o)
+      if (!EDGE || i >= o) fs[o] += (uint32_t)flacx::zigzag32(d[o]);
   }
 }
 
+template <typename T, int MAXLAG>
+__global__ void __launch_bounds__(THREADS) analysis_kernel(Args a) {
+  constexpr int HALO = MAXLAG + 4;  // >= max(MAXLAG, 4)
+  constexpr int V = MAXLAG < 16 ? 16 : 32;  // lags of the butterfly
+  static_assert(MAXLAG < V || MAXLAG == V, "lag 32 is summed apart");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ws = reinterpret_cast<T*>(smem);                      // [HALO + seg]
+  int32_t* xs = reinterpret_cast<int32_t*>(ws + HALO + a.seg);
+  __shared__ double red_d[WARPS][MAXLAG + 1];
+  __shared__ long long red_i[WARPS][5];
+  __shared__ bool last;
+
+  const int row = blockIdx.x / a.nseg, sg = blockIdx.x % a.nseg;
+  const int n = a.n, s0 = sg * a.seg;
+  const int m = min(a.seg, n - s0);              // samples of the segment
+  const int passes = (m + PASS - 1) / PASS;
+  const int32_t* xr = a.x + (size_t)row * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int stride = a.nwin * (a.max_lag + 1) + 5;
+  double* part =  // this segment's partials (a row of several segments)
+      a.nseg > 1 ? a.scratch + ((size_t)row * a.nseg + sg) * stride : nullptr;
+
+  for (int j = threadIdx.x; j < HALO + m; j += THREADS) {
+    const int i = s0 - HALO + j;
+    xs[j] = i >= 0 ? xr[i] : 0;
+  }
+
+  for (int w = 0; w < a.nwin; ++w) {
+    const T* wr = static_cast<const T*>(a.win) + (size_t)w * n;
+    const bool fixed = a.fixed && w == 0;
+    __syncthreads();  // the staged samples; the last window's readers
+    for (int j = threadIdx.x; j < HALO + passes * PASS; j += THREADS) {
+      const int i = s0 - HALO + j;
+      ws[j] = i >= 0 && i < n - 1 ? mul_rn(from_int<T>(xs[j]), wr[i]) : T(0);
+    }
+    __syncthreads();
+
+    double acc[V], top = 0.0;  // lags 0 .. V-1 (0 past MAXLAG), lag 32
+    long long fs[5];
+#pragma unroll
+    for (int l = 0; l < V; ++l) acc[l] = 0.0;
+#pragma unroll
+    for (int o = 0; o < 5; ++o) fs[o] = 0;
+
+    for (int p = 0; p < passes; ++p) {
+      const int c = HALO + p * PASS + threadIdx.x * RUN;  // the run's start
+      T own[RUN];
+#pragma unroll
+      for (int r = 0; r < RUN; ++r) own[r] = ws[c + r];
+      // each value of w[c - MAXLAG .. c + RUN - 1] read once, multiplied
+      // by every sample of the run it is a lag of
+#pragma unroll
+      for (int k = -MAXLAG; k < RUN; ++k) {
+        const T v = k < 0 ? ws[c + k] : own[k];
+#pragma unroll
+        for (int r = k < 0 ? 0 : k; r < RUN; ++r)
+          if (r - k < V && r - k <= MAXLAG)
+            acc[r - k] = __dadd_rn(acc[r - k], (double)mul_rn(v, own[r]));
+          else if (r - k == MAXLAG)
+            top = __dadd_rn(top, (double)mul_rn(v, own[r]));
+      }
+      if (fixed) {
+        int32_t d0[RUN + 4];  // x[c - 4 .. c + RUN - 1]
+#pragma unroll
+        for (int k = 0; k < RUN + 4; ++k) d0[k] = xs[c - 4 + k];
+        const int i0 = s0 + (c - HALO);  // the run's row position
+        if (i0 >= 4 && i0 + RUN <= n)
+          fixed_sums<false>(d0, i0, n, fs);
+        else
+          fixed_sums<true>(d0, i0, n, fs);
+      }
+    }
+
+    // the block's sums: a butterfly over each warp, then the warps in order
+    {
+      const double s = reduce_scatter<V>(acc, lane);
+      const int lag = V == 16 ? lane >> 1 : lane;
+      if ((V == 32 || !(lane & 1)) && lag <= MAXLAG) red_d[warp][lag] = s;
+      if (MAXLAG == V) {
+        const double v = flacx::warp_sum(top);
+        if (lane == 0) red_d[warp][MAXLAG] = v;
+      }
+    }
+    if (fixed) {
+#pragma unroll
+      for (int o = 0; o < 5; ++o) {
+        const long long v = flacx::warp_sum(fs[o]);
+        if (lane == 0) red_i[warp][o] = v;
+      }
+    }
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t <= a.max_lag) {
+      double s = red_d[0][t];
+      for (int q = 1; q < WARPS; ++q) s = __dadd_rn(s, red_d[q][t]);
+      if (a.nseg == 1)
+        a.autoc[((size_t)row * a.nwin + w) * (a.max_lag + 1) + t] = s;
+      else
+        __stcg(part + w * (a.max_lag + 1) + t, s);
+    } else if (fixed && t >= 64 && t < 69) {
+      const int o = t - 64;
+      long long s = 0;
+      for (int q = 0; q < WARPS; ++q) s += red_i[q][o];
+      if (a.nseg == 1)
+        a.fsums[(size_t)row * 5 + o] = s;
+      else
+        __stcg(part + a.nwin * (a.max_lag + 1) + o, __longlong_as_double(s));
+    }
+  }
+  if (a.nseg == 1) return;
+
+  // ----- the row's last block adds the segments' partials in order -------
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.tickets + row, 1) == a.nseg - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const double* rp = a.scratch + (size_t)row * a.nseg * stride;
+  const int lags = a.nwin * (a.max_lag + 1);
+  for (int e = threadIdx.x; e < lags + (a.fixed ? 5 : 0); e += THREADS) {
+    if (e < lags) {
+      double s = __ldcg(rp + e);
+      for (int q = 1; q < a.nseg; ++q)
+        s = __dadd_rn(s, __ldcg(rp + q * stride + e));
+      a.autoc[(size_t)row * lags + e] = s;
+    } else {
+      long long s = 0;
+      for (int q = 0; q < a.nseg; ++q)
+        s += __double_as_longlong(__ldcg(rp + q * stride + e));
+      a.fsums[(size_t)row * 5 + (e - lags)] = s;
+    }
+  }
+}
+
+template <typename T, int MAXLAG>
+void launch(const Args& a, int rows, cudaStream_t stream) {
+  static bool sized = false;  // past 48 KB, dynamic shared memory is opt-in
+  if (!sized) {
+    cudaFuncSetAttribute(analysis_kernel<T, MAXLAG>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem_bytes<T, MAXLAG>(SEG_LIMIT));
+    sized = true;
+  }
+  analysis_kernel<T, MAXLAG>
+      <<<rows * a.nseg, THREADS, smem_bytes<T, MAXLAG>(a.seg), stream>>>(a);
+}
+
 template <typename T>
-void launch(const int32_t* x, const void* win, double* autoc,
-            long long* fsums, int rows, int n, int max_lag, int fixed,
-            cudaStream_t stream) {
-  const T* w = static_cast<const T*>(win);
-  if (max_lag <= 12)
-    analysis_kernel<T, 12><<<rows, THREADS, 0, stream>>>(x, w, autoc, fsums,
-                                                          n, max_lag, fixed);
+void launch(const Args& a, int rows, cudaStream_t stream) {
+  if (a.max_lag <= 12)
+    launch<T, 12>(a, rows, stream);
   else
-    analysis_kernel<T, 32><<<rows, THREADS, 0, stream>>>(x, w, autoc, fsums,
-                                                          n, max_lag, fixed);
+    launch<T, 32>(a, rows, stream);
 }
 
 }  // namespace
 
-// x int32 [rows, n], win [n] (f32, or f64 when f64 != 0) -> autoc f64
-// [rows, max_lag+1] and, when fixed != 0, fsums int64 [rows, 5].  Returns
-// the CUDA error code of the launch.
+// x int32 [rows, n], win [nwin, n] (f32, or f64 when f64 != 0) -> autoc
+// f64 [rows, nwin, max_lag+1] and, when fixed != 0, fsums int64 [rows,
+// 5].  seg:
+// the samples of a segment (a multiple of 1152, at most 4608); past one
+// segment a row, scratch holds rows x nseg x (nwin * (max_lag+1) + 5)
+// doubles and tickets rows zeros.  Returns the CUDA error code of the
+// launch.
 FLACX_API int flacx_analysis(const int32_t* x, const void* win,
-                             double* autoc, long long* fsums, int rows, int n,
-                             int max_lag, int f64, int fixed,
+                             double* autoc, long long* fsums, double* scratch,
+                             int* tickets, int rows, int n, int max_lag,
+                             int nwin, int f64, int fixed, int seg,
                              cudaStream_t stream) {
-  if (rows <= 0 || n < 2 || max_lag < 0 || max_lag > 32 ||
-      (fixed && fsums == nullptr))
+  if (rows <= 0 || n < 2 || max_lag < 0 || max_lag > 32 || nwin < 1 ||
+      (fixed && fsums == nullptr) || seg <= 0 || seg % PASS ||
+      seg > SEG_LIMIT)
     return (int)cudaErrorInvalidValue;
+  const int nseg = (n + seg - 1) / seg;
+  if (nseg > 1 && (!scratch || !tickets)) return (int)cudaErrorInvalidValue;
+  const Args a{x,    win,  autoc, fsums, scratch, tickets,
+               n,    max_lag, nwin, fixed, seg,     nseg};
   if (f64)
-    launch<double>(x, win, autoc, fsums, rows, n, max_lag, fixed, stream);
+    launch<double>(a, rows, stream);
   else
-    launch<float>(x, win, autoc, fsums, rows, n, max_lag, fixed, stream);
+    launch<float>(a, rows, stream);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,24 @@ from flacx_torch.ops.lpc import (fused_int32_ok, mac_int32_ok,
 from flacx_torch.ops.rice import zigzag
 
 MAX_TAPS = 32
+#: samples of a block's pass (``THREADS * RUN`` of ``csrc/lpc_residual.cu``)
+PASS = 1152
+#: the largest segment of a row one block takes
+SEG_MAX = 2 * PASS
+
+
+def segment_size(n: int) -> int:
+    """Samples of one block's segment of a row of ``n``: whole passes, at
+    most :data:`SEG_MAX`."""
+    return min(SEG_MAX, -(-n // PASS) * PASS)
+
+
+def _stats_outputs(x: torch.Tensor, seg: int):
+    """``(lzz, maxabs)`` for the kernel: zeros where a row has several
+    segments (their blocks add into them), else left to be written."""
+    new = torch.zeros if seg < x.shape[-1] else torch.empty
+    return (new(x.shape[:-1], dtype=torch.int64, device=x.device),
+            new(x.shape[:-1], dtype=torch.int32, device=x.device))
 
 
 def mac_width(eff_bps: int, sum_taps_max: int) -> str:
@@ -91,11 +109,11 @@ def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
         return lpc_residual_stats_plain(x, taps, shift, order, eff_bps,
                                         sum_taps_max)
     rows, n, t = _check_inputs(x, taps, shift, order)
-    lzz = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
-    maxabs = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
-    launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 4),
-           [x, taps, shift, order, lzz, maxabs],
-           [rows, n, t, int(mac_width(eff_bps, sum_taps_max) == "wide")],
+    wide = mac_width(eff_bps, sum_taps_max) == "wide"
+    seg = segment_size(n)
+    lzz, maxabs = _stats_outputs(x, seg)
+    launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 5),
+           [x, taps, shift, order, lzz, maxabs], [rows, n, t, int(wide), seg],
            "lpc_residual_stats")
     lpc_residual_stats.launches += 1
     return lzz, maxabs
@@ -112,10 +130,10 @@ def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
                                      sum_taps_max)
     rows, n, t = _check_inputs(x, taps, shift, order)
     zz = torch.empty_like(x)
-    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 4),
+    wide = mac_width(eff_bps, sum_taps_max) == "wide"
+    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 5),
            [x, taps, shift, order, zz],
-           [rows, n, t, int(mac_width(eff_bps, sum_taps_max) == "wide")],
-           "lpc_residual_zz")
+           [rows, n, t, int(wide), segment_size(n)], "lpc_residual_zz")
     lpc_residual_zz.launches += 1
     return zz
 
@@ -134,10 +152,10 @@ def lpc_residual_res(x: torch.Tensor, taps: torch.Tensor,
     assert fused_int32_ok(eff_bps, sum_taps_max), "past the int32 gate"
     rows, n, t = _check_inputs(x, taps, shift, order)
     res = torch.empty_like(x)
-    lzz = torch.empty(x.shape[:-1], dtype=torch.int64, device=x.device)
-    maxabs = torch.empty(x.shape[:-1], dtype=torch.int32, device=x.device)
-    launch(bind("lpc_residual", "flacx_lpc_residual_res", 7, 3),
-           [x, taps, shift, order, res, lzz, maxabs], [rows, n, t],
+    seg = segment_size(n)
+    lzz, maxabs = _stats_outputs(x, seg)
+    launch(bind("lpc_residual", "flacx_lpc_residual_res", 7, 4),
+           [x, taps, shift, order, res, lzz, maxabs], [rows, n, t, seg],
            "lpc_residual_res")
     lpc_residual_res.launches += 1
     return res, lzz, maxabs

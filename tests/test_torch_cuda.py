@@ -14,7 +14,10 @@ segments, and 5.1 frames past 200 KB; the frame packer's chunk edges
 (words shared by two chunks, chunk totals on and off a 32-bit word,
 blocks the chunk size does not divide, chunks with no bits, 32-bit
 symbols, a batch of one frame); the residual written with its stats (res
-mode); the all-orders MAC's limb split at its edges (two
+mode); ``analysis`` under 1-5 windows at the segment edges, bit for
+bit from call to call; ``lpc_residual`` in every tap bucket over one
+to eight segments a row; the all-orders MAC's limb split at its
+edges (two
 tap limbs, the int32 bound met exactly, the M and K tile edges, rows
 shorter than a tile, full-scale 25-bit rows) and the Rice search's
 (nonpositive counts, sums that wrap uint32).  Integers must match
@@ -89,6 +92,72 @@ def test_analysis_kernel_f64(dev, n, max_lag):
     tol = 1e-12 * (ref_a.abs() + ref_a[..., :1].abs())
     assert bool(((autoc - ref_a).abs() <= tol).all())
     assert torch.equal(later, autoc)
+
+
+@pytest.mark.parametrize("max_lag", [0, 12, 32])
+@pytest.mark.parametrize("n", [64, 1152, 2304, k_an.SEG_MAX - 1,
+                               k_an.SEG_MAX, k_an.SEG_MAX + 1, 16384])
+def test_analysis_kernel_windows(dev, n, max_lag):
+    """1, 3, 4 and 5 windows ``[W, n]``, each call one launch, f32 and f64,
+    on rows of one pass or less, on either side of a segment, and of several
+    segments: each window's lags within tolerance of the plain version,
+    the fixed sums exact, and two calls equal bit for bit (the segments'
+    partials add in a fixed order)."""
+    x = torch.from_numpy(rows(9, 6, n)).to(dev)
+    gen = torch.Generator().manual_seed(n + max_lag)
+    for dtype in (torch.float32, torch.float64):
+        for nwin in (1, 3, 4, 5):
+            w = torch.rand((nwin, n), dtype=dtype, generator=gen).to(dev)
+            before = k_an.analysis.launches
+            autoc, fsums = k_an.analysis(x, w, max_lag)
+            again = k_an.analysis(x, w, max_lag)
+            ref_a, ref_f = k_an.analysis_plain(x, w, max_lag)
+            torch.cuda.synchronize()
+            assert k_an.analysis.launches - before == 2
+            assert autoc.shape == (6, nwin, max_lag + 1)
+            assert torch.equal(autoc, again[0])
+            assert torch.equal(fsums, again[1])
+            assert torch.equal(fsums, ref_f)
+            rtol = 1e-9 if dtype == torch.float32 else 1e-12
+            tol = rtol * ref_a.abs() + 1e-12 * ref_a[..., :1].abs()
+            assert bool(((autoc - ref_a).abs() <= tol).all()), (dtype, nwin)
+
+
+#: one row count of taps in each of the kernel's MAC buckets (0, 4, 8, 12,
+#: 16, 24, 32), some padded by the bucket
+BUCKET_TAPS = (0, 3, 8, 11, 16, 20, 32)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("n,r", [(1152, 1024), (4608, 14), (16384, 14)])
+def test_lpc_residual_kernel_buckets(dev, n, r, wide):
+    """Every mode on rows in every tap bucket: 1024 rows of 1152 (the best
+    path's shape), rows of two segments (4608) and of eight (16384), the
+    int32 MAC on 17-bit rows and the wide one on 25-bit rows with
+    precision-15 taps; a warm-up past the first segment boundary (the
+    mask takes the row position).  Each wrapper counts one launch."""
+    bits, tmax = (25, 1 << 14) if wide else (17, 6)
+    bound = (bits, 32 * tmax)
+    assert (k_lr.mac_width(*bound) == "wide") == wide
+    x = torch.from_numpy(rows(13, r, n, bits=bits)).to(dev)
+    rng = np.random.default_rng(n + r + bits)
+    nt = np.resize(BUCKET_TAPS, r)
+    taps = rng.integers(-tmax, tmax, (r, 32)).astype(np.int32)
+    taps[np.arange(32) >= nt[:, None]] = 0
+    taps[nt > 0, nt[nt > 0] - 1] = tmax - 1       # the last tap nonzero
+    order = nt.astype(np.int32)
+    order[7] = min(n - 1, k_lr.segment_size(n) + 96)
+    shift = rng.integers(0, 16, r).astype(np.int32)
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
+    for mode in ("stats", "zz") + (() if wide else ("res",)):
+        fn = getattr(k_lr, f"lpc_residual_{mode}")
+        before = fn.launches
+        got = fn(*args, *bound)
+        ref = getattr(k_lr, f"lpc_residual_{mode}_plain")(*args, *bound)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        got, ref = ((v if isinstance(v, tuple) else (v,)) for v in (got, ref))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), mode
 
 
 @pytest.mark.parametrize("p", [1, 12, 16, 17, 32])

@@ -3,7 +3,8 @@
 more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
 
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
-        [--kernel {frame_pack,lpc_allorder,rice_stats} ...]
+        [--kernel {analysis,frame_pack,lpc_allorder,lpc_residual_res,
+                   lpc_residual_stats,lpc_residual_zz,rice_stats} ...]
         [--path {headline,best4608,best2304,best1152,hires,hires6,
                  file_default,file_b1152,file_best24} ...]
 
@@ -18,10 +19,12 @@ the arguments of each kernel's first launch, checks the kernel against
 its plain version, and prints one JSON line per batch: the tree, the
 median kernel time of ``--reps`` launches under the profiler for each
 kernel (the kernels of one wrapper summed), and the card's name and
-power limit.  Run it on
-two checkouts in one call (A, B, B, A) to compare two versions of a
-kernel at these shapes.  Defaults: ``frame_pack`` at the headline.  Needs
-CUDA.
+power limit.  ``analysis`` is timed over ALL of a batch's launches,
+summed (a checkout that launches once per window and one that launches
+once for every window time the same work).  A kernel the path does not
+run gets ``null``.  Run it on two checkouts in one call (A, B, B, A) to
+compare two versions of a kernel at these shapes.  Defaults:
+``frame_pack`` at the headline.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -43,7 +46,52 @@ KERNELS = {
     "lpc_allorder": ("lpc_allorder_kernel", "lpc_allorder", "lpc_allorder",
                      "lpc_allorder_plain"),
     "rice_stats": ("rice_stats", "rice_stats", "rice_stats", None),
+    "analysis": ("analysis_kernel", "analysis", "analysis",
+                 "analysis_plain"),
+    "lpc_residual_stats": ("lpc_residual_kernel<0", "lpc_residual",
+                           "lpc_residual_stats", "lpc_residual_stats_plain"),
+    "lpc_residual_zz": ("lpc_residual_kernel<1", "lpc_residual",
+                        "lpc_residual_zz", "lpc_residual_zz_plain"),
+    "lpc_residual_res": ("lpc_residual_kernel<2", "lpc_residual",
+                         "lpc_residual_res", "lpc_residual_res_plain"),
 }
+
+
+def capture_every_call(name: str):
+    """Record the arguments of every call the encoder makes to kernel
+    wrapper ``name`` (a list); returns ``(calls, restore)``."""
+    import flacx_torch.encoder as encoder
+
+    fn = getattr(encoder, name)
+    calls = []
+
+    def wrapped(*args, **kwargs):
+        calls.append(args + tuple(kwargs.values()))
+        return fn(*args, **kwargs)
+    setattr(encoder, name, wrapped)
+    return calls, lambda: setattr(encoder, name, fn)
+
+
+def total_ms(torch, symbol: str, fn, launches: int, reps: int) -> float:
+    """Device ms of one ``fn()`` that launches ``launches`` kernels whose
+    names contain ``symbol``: the sum of their times over ``reps`` calls in
+    one profiler trace, divided by ``reps``; a trace that holds under half
+    the launches is taken again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if "CUDA" in str(e.device_type) and symbol in e.name]
+        seen.append(len(times))
+        if launches * reps <= 2 * len(times) <= 2 * launches * reps:
+            return sum(times) / len(times) * launches
+    raise RuntimeError(f"profiler saw {seen} of {launches * reps} launches")
 
 
 def batches(cs, path: str):
@@ -118,31 +166,53 @@ def main() -> int:
     card = cs.card_line()
     for path in args.path:
         for label, enc, planar in batches(cs, path):
-            captured, restore = cs.capture_main_path_inputs(args.kernel)
+            others = [k for k in args.kernel if k != "analysis"]
+            captured, restore = cs.capture_main_path_inputs(others)
+            calls, restore_an = capture_every_call("analysis")
             try:
                 enc.encode_batch_device(planar, 0)
             finally:
                 restore()
+                restore_an()
             torch.cuda.synchronize()
-            launches = {}
+            launches, out = {}, {}
             for kernel in args.kernel:
-                if kernel not in captured:
-                    raise RuntimeError(f"{kernel} does not run on {label}")
                 symbol, module, wrapper, plain = KERNELS[kernel]
                 mod = importlib.import_module(f"flacx_torch.kernels.{module}")
                 fn = getattr(mod, wrapper)
+                ref = getattr(mod, plain) if plain else None
+                if kernel == "analysis":
+                    close = cs.autoc_close(
+                        1e-12 if calls[0][1].dtype == torch.float64 else 1e-9,
+                        1e-12)
+                    for a in calls:
+                        close(torch, fn(*a), ref(*a))
+                    before = fn.launches
+                    for a in calls:
+                        fn(*a)
+                    out[kernel] = total_ms(
+                        torch, symbol, lambda f=fn: [f(*a) for a in calls],
+                        fn.launches - before, args.reps)
+                    continue
+                if kernel not in captured:
+                    out[kernel] = None
+                    continue
                 kargs = captured[kernel]
                 if plain is None:
                     cs.rice_equal(torch, fn(*kargs), rice.rice_stats(*kargs))
                 else:
-                    cs.exact(torch, fn(*kargs), getattr(mod, plain)(*kargs))
+                    cs.exact(torch, fn(*kargs), ref(*kargs))
                 launches[symbol] = (lambda f=fn, a=kargs: f(*a))
-            ms = cs.kernel_times(torch, launches, args.reps)
+            if launches:
+                ms = cs.kernel_times(torch, launches, args.reps)
+                out.update({k: ms[KERNELS[k][0]] for k in args.kernel
+                            if KERNELS[k][0] in ms})
             print(json.dumps({
                 "tree": args.tree, "path": label,
-                "ms": {k: ms[KERNELS[k][0]] for k in args.kernel},
-                "reps": args.reps, "card": card}), flush=True)
-            del captured, launches, enc, planar
+                "ms": {k: out[k] for k in args.kernel},
+                "analysis_launches": len(calls), "reps": args.reps,
+                "card": card}), flush=True)
+            del captured, calls, launches, enc, planar
     return 0
 
 
