@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from ``flacx_torch/kernels/csrc`` and runs
-these paths through ``BatchEncoder`` on the card:
+Builds the eight CUDA kernels from ``flacx_torch/kernels/csrc`` and runs
+these paths on the card, the encodes through ``BatchEncoder``:
 
 * the headline encode, 16-bit stereo: one 1024-frame batch at block
   4608, LPC order 12;
@@ -22,8 +22,15 @@ these paths through ``BatchEncoder`` on the card:
   on WAV files written from the seed, a 3-minute 16-bit CD rip at the
   defaults and at ``-b 1152`` (the ``lpc_residual`` res mode) and a 60 s
   24-bit master with ``--best`` (the wide ``lpc_allorder``).  Each file's
-  STREAMINFO, MD5, CRCs and sampled frames are checked, and a 20 s
-  excerpt is encoded on the card and with ``--device cpu``.
+  STREAMINFO, MD5, CRCs and sampled frames are checked, each file is
+  decoded with ``python -m flacx_torch decode`` in process (the defaults'
+  file also with ``--stream``) back to its PCM, and a 20 s excerpt is
+  encoded on the card and with ``--device cpu``;
+* the decode (``decode``): ``decoder.decode_array`` on the card over the
+  streams of the headline batch (at 256 and 1024 frames a batch), of the
+  same PCM with fixed predictors only, and of the two hi-res batches, each
+  bit-exact against its PCM with every batch on the device route (the
+  ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels).
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes its path gives it, those of the best path at each block size.  For
@@ -31,6 +38,10 @@ each encode: every kernel of the path was launched, every frame's CRC-16
 holds, frames decode bit-exactly under the port's oracle decoder (16 of
 each 16-bit encode, 4 and 2 of the hi-res ones), and they match the
 plain CPU path byte for byte wherever both chose the same coefficients.
+
+The decode kernels are held against their plain versions on the
+arguments of their first launch in each stream's decode (rows
+``<kernel>@<stream>``, ``reconstruct_<route>@<stream>``).
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
@@ -457,6 +468,8 @@ def hold(torch, name: str, wrapper: str, args: tuple,
             csrc + "rice_stats.cu",
             "flacx/kernels/rice_tile.py:"
             + ("266" if n <= 8192 and n % 128 == 0 else "293"))
+    if wrapper in DECODE_PATH:
+        return decode_row(torch, name, wrapper, args)
     assert wrapper == "frame_pack"
     xs, psize = args[7], args[12]
     if replaces is None:
@@ -474,9 +487,13 @@ def hold(torch, name: str, wrapper: str, args: tuple,
 
 
 def launch_counts() -> dict:
-    from flacx_torch.kernels import (analysis, frame_pack, lpc_allorder,
-                                     lpc_residual, rice_stats)
+    from flacx_torch.kernels import (analysis, bit_unpack, crc16_rows,
+                                     frame_pack, lpc_allorder, lpc_residual,
+                                     reconstruct, rice_stats)
     return {
+        "bit_unpack": bit_unpack.bit_unpack,
+        "reconstruct": reconstruct.reconstruct,
+        "crc16_rows": crc16_rows.crc16_rows,
         "analysis": analysis.analysis,
         "lpc_residual_stats": lpc_residual.lpc_residual_stats,
         "lpc_residual_zz": lpc_residual.lpc_residual_zz,
@@ -565,9 +582,10 @@ def time_path(torch, enc, planar: np.ndarray, reps: int) -> tuple:
     return e2e_ms, dev_ms
 
 
-def headline_phase(torch, pcm: np.ndarray) -> list[dict]:
+def headline_phase(torch, pcm: np.ndarray, streams: dict) -> list[dict]:
     """The headline batch: kernels against their plain versions, then the
-    counted run, the frame checks and the timing."""
+    counted run, the frame checks and the timing; its frames go into
+    ``streams`` for the decode phase."""
     from flacx_torch.encoder import BatchEncoder, EncoderConfig
 
     cfg = EncoderConfig(block_size=N, max_lpc_order=12)
@@ -595,6 +613,7 @@ def headline_phase(torch, pcm: np.ndarray) -> list[dict]:
         row["launches"], row["batches"] = counts[row["name"]], 1
 
     _, differ = check_frames(frames, planar, cfg, "headline")
+    streams["headline"] = (frames, pcm, 44100, 16, N)
     total_bytes = sum(map(len, frames))
     print(f"e2e frames {B}: all CRC-16 valid, 16 decoded bit-exact; "
           f"cpu plain path byte-equal on {16 - differ}/16 "
@@ -774,10 +793,11 @@ def hires_pcm(channels: int, frames: int) -> np.ndarray:
     return np.clip(pcm, -(1 << 23), (1 << 23) - 1).astype(np.int32)
 
 
-def hires_phase(torch, label: str) -> list[dict]:
+def hires_phase(torch, label: str, streams: dict) -> list[dict]:
     """One hi-res batch (a key of :data:`HIRES`): every kernel mode of the
     path against its plain version on the arguments of its first launch,
-    then the counted run, the frame checks and the timing."""
+    then the counted run, the frame checks and the timing; its frames go
+    into ``streams`` for the decode phase."""
     from flacx_torch.encoder import BatchEncoder
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import lpc_residual as k_lr
@@ -787,7 +807,8 @@ def hires_phase(torch, label: str) -> list[dict]:
     channels, frames, decode = HIRES[label]
     cfg = hires_config(channels)
     enc = BatchEncoder(cfg, batch_frames=frames)
-    planar = blocks_of(hires_pcm(channels, frames), HIRES_N, np.int32)
+    interleaved = hires_pcm(channels, frames)
+    planar = blocks_of(interleaved, HIRES_N, np.int32)
 
     captured, restore = capture_main_path_inputs(HIRES_PATH)
     try:
@@ -840,6 +861,7 @@ def hires_phase(torch, label: str) -> list[dict]:
         row["launches"], row["batches"] = counts[row.pop("wrapper")], 1
     _, differ = check_frames(out, planar, cfg, label, decode=decode,
                              cpu=decode)
+    streams[label] = (out, interleaved, 96000, 24, HIRES_N)
     total = sum(map(len, out))
     pcm_bytes = planar.size * 3
     e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
@@ -855,6 +877,222 @@ def hires_phase(torch, label: str) -> list[dict]:
           f"({samples / (e2e_ms / 1e3):.1f} samples/s), device pipeline "
           f"{dev_ms:.3f} ms per batch ({samples / (dev_ms / 1e3):.1f} "
           f"samples/s); first call {first_s * 1e3:.1f} ms", flush=True)
+    return rows
+
+
+DECODE_PATH = ("bit_unpack", "reconstruct", "crc16_rows")
+#: the decode phase's streams and the batch sizes each is decoded at (the
+#: CLI's default 256 first: its counted run gives the rows' launches)
+DECODE_BATCHES = {"headline": (256, 1024), "fixed": (256,), "hires": (256,),
+                  "hires6": (256,)}
+
+
+def decode_row(torch, name: str, wrapper: str, args: tuple) -> dict:
+    """The JSON row of a decode kernel, held against its plain version on
+    ``args``, the arguments of its first launch on the decode path.  The
+    JAX package runs these steps as XLA (no ``pallas_call``); ``replaces``
+    names its functions."""
+    from flacx_torch.kernels import bit_unpack as k_bu
+    from flacx_torch.kernels import crc16_rows as k_crc
+    from flacx_torch.kernels import reconstruct as k_rec
+
+    csrc = "flacx_torch/kernels/csrc/"
+    if wrapper == "bit_unpack":
+        kind, order, n = args[5].long(), args[6].long(), args[9]
+        symbols = int(torch.where(kind == 1, n, torch.where(
+            kind >= 2, n - order, 0)).sum())
+        # about 40 integer operations a symbol: the window from three
+        # words, the parameter field, clz, remainder, zigzag, cursor
+        return kernel_row(
+            torch, name, "bit_unpack_kernel", k_bu.bit_unpack,
+            k_bu.bit_unpack_plain, args, exact,
+            [(40 * symbols, SCALAR_OPS_PER_S)], csrc + "bit_unpack.cu",
+            "flacx/ops/bitunpack.py:146 + :42 (XLA)")
+    if wrapper == "reconstruct":
+        vals, order, kind, use_i32 = args[0], args[3], args[4], args[12]
+        # a multiply-add a tap up to each subframe's order and sample, two
+        # operations (four in the int64 MAC), and 8 a sample besides
+        # (merge, shift, wasted bits, undecorrelation, store)
+        macs = int((order.long() * (kind >= 2)).sum()) * vals.shape[-1]
+        return kernel_row(
+            torch, name, "reconstruct_kernel", k_rec.reconstruct,
+            k_rec.reconstruct_plain, args, exact,
+            [(macs * (2 if use_i32 else 4) + vals.numel() * 8,
+              SCALAR_OPS_PER_S)], csrc + "reconstruct.cu",
+            "flacx/ops/reconstruct.py:18 + :73 + :141 + :184, "
+            "flacx/decoder.py:399-427 (XLA)")
+    rows, lens = args
+    # the frame bytes themselves (not the row padding), a lookup, a shift
+    # and an XOR a byte of each body
+    body = int(lens.long().sum())
+    return kernel_row(
+        torch, name, "crc16_rows_kernel", k_crc.crc16_rows,
+        k_crc.crc16_rows_plain, args, exact,
+        [(3 * body, SCALAR_OPS_PER_S)], csrc + "crc16_rows.cu",
+        "flacx/ops/crcfold.py:142, flacx/decoder.py:428-437 (XLA)",
+        moved=body + 8 * lens.numel() + 4)
+
+
+def flac_stream(frames: list, pcm: np.ndarray, rate: int, bps: int,
+                n: int) -> bytes:
+    """A FLAC stream of ``frames`` (fixed blocks of ``n``) with the MD5 of
+    the interleaved ``pcm`` they code."""
+    import io
+
+    from flacx_torch.stream import StreamWriter
+
+    f = io.BytesIO()
+    w = StreamWriter(f, rate, bps, pcm.shape[1], len(pcm), n)
+    w.add_pcm(pcm)
+    w.write_frames(frames)
+    w.finalize()
+    return f.getvalue()
+
+
+def spy_decoder(names) -> tuple:
+    """Wrap functions of ``flacx_torch.decoder``: records the arguments of
+    each one's first call and counts its calls; returns ``(captured,
+    calls, restore)``."""
+    import flacx_torch.decoder as dec
+
+    captured, calls, originals = {}, {}, []
+    for name in names:
+        fn = getattr(dec, name)
+        originals.append((name, fn))
+
+        def wrapped(*args, _fn=fn, _name=name, **kwargs):
+            captured.setdefault(_name, args)
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(dec, name, wrapped)
+
+    def restore():
+        for name, fn in originals:
+            setattr(dec, name, fn)
+    return captured, calls, restore
+
+
+def fixed_frames(pcm: np.ndarray) -> list:
+    """The headline PCM encoded with fixed predictors only
+    (``max_lpc_order=0``), one 1024-frame batch on the card."""
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+
+    cfg = EncoderConfig(block_size=N, max_lpc_order=0)
+    return BatchEncoder(cfg, batch_frames=B).encode_frames(blocks_of(pcm, N),
+                                                          0)
+
+
+def decode_times(torch, data: bytes, bf: int, batches: int, samples: int,
+                 dd_args: tuple) -> str:
+    """The decode's times at ``bf`` frames a batch, as text: the wall of
+    ``decode_array`` (three runs) and its walker time a batch, decoded
+    samples/s, and for the first batch (``dd_args``, the arguments of its
+    ``_device_decode``) the device pipeline and the copies: H2D of its
+    rows and walker output from pinned memory, D2H of its PCM."""
+    import flacx_torch.decoder as dec
+
+    walker = []
+    scan_frames = dec.scan_frames
+
+    def timed_scan(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return scan_frames(*args, **kwargs)
+        finally:
+            walker.append(time.perf_counter() - t0)
+    dec.scan_frames = timed_scan
+    reps = 3
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dec.decode_array(data, batch_frames=bf, device="cuda")
+        wall = (time.perf_counter() - t0) / reps
+    finally:
+        dec.scan_frames = scan_frames
+    dev_ms = median_ms(torch, lambda: dec._device_decode(*dd_args), 10)
+    pcm = dec._device_decode(*dd_args)[0]
+    moved = nbytes(dd_args[0], dd_args[1], dd_args[2])
+    staged = torch.empty(moved, dtype=torch.uint8, pin_memory=True)
+    h2d_ms = median_ms(torch, lambda: staged.to("cuda", non_blocking=True),
+                       10)
+    d2h_ms = median_ms(torch, lambda: pcm.cpu(), 10)
+    if min(wall, dev_ms, h2d_ms, d2h_ms) <= 0:
+        raise AssertionError(f"non-positive decode timing: wall {wall} s, "
+                             f"device {dev_ms}, H2D {h2d_ms}, D2H {d2h_ms}")
+    return (f"wall {wall / batches * 1e3:.3f} ms a batch, "
+            f"{samples / wall:.1f} decoded samples/s; walker "
+            f"{sum(walker) / reps / batches * 1e3:.3f} ms a batch; first "
+            f"batch ({dd_args[0].shape[0]} frames): device {dev_ms:.3f} ms "
+            f"(_device_decode), copy {h2d_ms + d2h_ms:.3f} ms (H2D "
+            f"{h2d_ms:.3f} of {moved} pinned bytes, D2H {d2h_ms:.3f} of "
+            f"{pcm.numel() * 4} PCM bytes)")
+
+
+def decode_phase(torch, streams: dict) -> list[dict]:
+    """``decode_array`` on the card over the streams the encode phases
+    wrote (label → frames, interleaved PCM, rate, width, block): each
+    kernel held against its plain version on its first launch's
+    arguments, then counted decodes at each batch size of
+    :data:`DECODE_BATCHES` (bit-exact against the source PCM, every kernel
+    launched, every batch on the device route: no host parse, no
+    sequential decode) and the timing: wall, walker, copy and device ms a
+    batch, decoded samples/s."""
+    import flacx_torch.decoder as dec
+
+    card = card_line()
+    rows = []
+    for label, (frames, pcm, rate, bps, n) in streams.items():
+        data = flac_stream(frames, pcm, rate, bps, n)
+        captured, _, restore = spy_decoder(DECODE_PATH + ("_device_decode",))
+        try:
+            dec.decode_array(data, device="cuda")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        rec = captured["reconstruct"]
+        route = ("fixed" if rec[14] is not None else
+                 "chunk" if rec[9] is not None else "serial")
+        route += "" if rec[12] else "_wide"
+        if (label == "fixed") != route.startswith("fixed"):
+            raise AssertionError(f"decode {label}: route {route}")
+        group = []
+        for wrapper in DECODE_PATH:
+            mode = f"_{route}" if wrapper == "reconstruct" else ""
+            group.append(hold(torch, f"{wrapper}{mode}@{label}", wrapper,
+                              captured[wrapper]))
+        time_rows(torch, group)
+
+        del captured, rec
+        for bf in DECODE_BATCHES[label]:
+            stats = {}
+            captured, _, restore = spy_decoder(("_device_decode",))
+            try:
+                (_, got), counts = counted_run(
+                    lambda: dec.decode_array(data, batch_frames=bf,
+                                             device="cuda", stats=stats),
+                    DECODE_PATH)
+            finally:
+                restore()
+            batches = -(-(len(pcm) // n) // bf)
+            if not np.array_equal(got, pcm):
+                raise AssertionError(f"decode {label} at {bf}: not "
+                                     "bit-exact")
+            if (stats.get("host") or stats.get("sequential")
+                    or stats.get("device") != batches):
+                raise AssertionError(f"decode {label} at {bf}: routes "
+                                     f"{stats}, {batches} batches")
+            if bf == DECODE_BATCHES[label][0]:
+                for row, wrapper in zip(group, DECODE_PATH):
+                    row["launches"], row["batches"] = counts[wrapper], batches
+            print(f"decode {label} ({len(pcm) // n} frames x "
+                  f"{pcm.shape[1]} channels x {n}, {bps}-bit, reconstruct "
+                  f"{route}) batch {bf}: {batches} batches, bit-exact, "
+                  f"routes {stats}, launches {counts}; "
+                  + decode_times(torch, data, bf, batches, pcm.size,
+                                 captured["_device_decode"])
+                  + f"; card {card}", flush=True)
+            del captured
+        rows += group
     return rows
 
 
@@ -1019,6 +1257,40 @@ def same_file(card: bytes, cpu: bytes, bps: int, what: str) -> int:
     return differ
 
 
+def decode_file(cli, path, pcm: np.ndarray, label: str, seconds: float,
+                tmp: str) -> None:
+    """``python -m flacx_torch decode`` in process on the file at ``path``
+    (and with ``--stream`` on the defaults' file), counted: every decode
+    kernel launched, no batch on the host route, no frame through the
+    oracle but the short last one, and the WAV's PCM the source's."""
+    from pathlib import Path
+
+    from flacx_torch.wavio import read_wav
+
+    wav = Path(tmp, "decoded.wav")
+    for flags in ((), ("--stream",)) if label == "default" else ((),):
+        _, calls, restore = spy_decoder(("_decode_rows", "read_frame"))
+        try:
+            t0 = time.perf_counter()
+            _, counts = counted_run(
+                lambda: cli.main(["decode", *flags, str(path), str(wav)]),
+                DECODE_PATH)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        if calls.get("_decode_rows") or calls.get("read_frame", 0) > 1:
+            raise AssertionError(f"file {label} decode {flags}: host route "
+                                 f"or oracle frames {calls}")
+        if not np.array_equal(read_wav(wav)[3], pcm):
+            raise AssertionError(f"file {label} decode {flags}: not "
+                                 "bit-exact")
+        print(f"file {label} decode{' --stream' if flags else ''}: wall "
+              f"{wall:.3f} s, {seconds / wall:.1f}x realtime, "
+              f"{pcm.size / wall:.1f} decoded samples/s; launches {counts}; "
+              f"oracle frames {calls.get('read_frame', 0)} (the short last "
+              "frame), no host-route batch; WAV PCM bit-exact", flush=True)
+
+
 def file_phase(torch) -> list[dict]:
     """``python -m flacx_torch encode`` in process on the card, on WAV
     files written from the seed: the CD rip at the defaults and at
@@ -1101,6 +1373,7 @@ def file_phase(torch) -> list[dict]:
             blocks = BEST_BLOCKS if label == "best" else (
                 int(flags[1]) if flags else N,)
             info = check_flac(data, pcm, rate, bps, blocks, label)
+            decode_file(cli, out, pcm, label, len(pcm) / rate, tmp)
             tails = sum(len(pcm) % b != 0 for b in blocks)
             if len(oracle_s) != tails:
                 raise AssertionError(f"{label}: {len(oracle_s)} oracle "
@@ -1248,11 +1521,17 @@ def main() -> int:
           f" kernel build {build_s:.2f} s", flush=True)
 
     pcm = synth_pcm(np.random.default_rng(SEED), N * B)
-    rows = headline_phase(torch, pcm)
+    streams = {}
+    rows = headline_phase(torch, pcm, streams)
     rows += best_phase(torch, pcm)
     wasted_phase(pcm)
+    streams["fixed"] = (fixed_frames(pcm), pcm, 44100, 16, N)
     for label in HIRES:
-        rows += hires_phase(torch, label)
+        rows += hires_phase(torch, label, streams)
+    t0 = time.perf_counter()
+    rows += decode_phase(torch, streams)
+    print(f"decode phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    del streams
     rows += file_phase(torch)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",

@@ -1,10 +1,11 @@
-"""Command-line interface: ``python -m flacx_torch encode in.wav out.flac``.
+"""Command-line interface: ``python -m flacx_torch encode in.wav out.flac``
+and ``python -m flacx_torch decode in.flac out.wav``.
 
-The JAX package's ``encode`` subcommand with every flag, default, metavar
-and check, and the same completion prints; one addition, ``--device
-{cuda,cpu}``, picks the torch device (the card by default; ``cpu`` runs
-each kernel's plain PyTorch version).  ``decode`` and ``encode-corpus``
-come with the device-decode and parallel slices of the port.
+The JAX package's ``encode`` and ``decode`` subcommands with every flag,
+default, metavar and check, and the same completion prints; one addition
+to each, ``--device {cuda,cpu}``, picks the torch device (the card by
+default; ``cpu`` runs each kernel's plain PyTorch version).
+``encode-corpus`` comes with the parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from timeit import default_timer as timer
 
 from flacx_torch.utils import argparse_range
 
+ACTION_DECODE = "decode"
 ACTION_ENCODE = "encode"
 
 DEFAULT_BLOCK_SIZE = 4608
@@ -92,12 +94,85 @@ def cmd_encode(path_in: Path, path_out: Path, block_size: int,
         print("  " + json.dumps(stats["stats"]))
 
 
+def cmd_decode(path_in: Path, path_out: Path, oracle: bool = False,
+               batch_frames: int = 256, stream: bool = False,
+               device: str = "cuda") -> None:
+    import hashlib
+
+    from flacx_torch.wavio import pcm_to_le_bytes, write_wav
+
+    if stream:
+        # constant-memory path: O(readahead) regardless of file length
+        from flacx_torch.decoder import decode_stream
+        from flacx_torch.wavio import write_wav_chunks
+
+        time_start = timer()
+        with open(path_in, "rb") as f:
+            streaminfo, chunks = decode_stream(f, oracle=oracle,
+                                               batch_frames=batch_frames,
+                                               device=device)
+            md5 = hashlib.md5()
+
+            def hashed():
+                for pcm in chunks:
+                    md5.update(pcm_to_le_bytes(pcm, streaminfo.sample_size))
+                    yield pcm
+
+            write_wav_chunks(path_out, streaminfo.sample_rate,
+                             streaminfo.sample_size, streaminfo.channels,
+                             hashed())
+        time_end = timer()
+        if streaminfo.md5 != bytes(16) and md5.digest() != streaminfo.md5:
+            raise SystemExit("decoded audio MD5 mismatch")
+    else:
+        from flacx_torch.decoder import decode_array
+
+        data = path_in.read_bytes()
+
+        time_start = timer()
+        streaminfo, pcm = decode_array(data, oracle=oracle,
+                                       batch_frames=batch_frames,
+                                       device=device)
+        time_end = timer()
+
+        if streaminfo.md5 != bytes(16):
+            got = hashlib.md5(
+                pcm_to_le_bytes(pcm, streaminfo.sample_size)).digest()
+            if got != streaminfo.md5:
+                raise SystemExit("decoded audio MD5 mismatch")
+
+        write_wav(path_out, streaminfo.sample_rate, streaminfo.sample_size,
+                  pcm)
+    delta = "{0:.6g}".format(time_end - time_start)
+    print(f"Decoding completed in {delta} seconds")
+
+
 def make_argument_parser() -> ArgumentParser:
     parser = ArgumentParser(prog="flacx_torch",
                             formatter_class=ArgumentDefaultsHelpFormatter)
 
     action = parser.add_subparsers(title="action", dest="action",
                                    required=True)
+
+    decode = action.add_parser(ACTION_DECODE,
+                               formatter_class=ArgumentDefaultsHelpFormatter)
+    decode.add_argument("infile", type=Path, metavar="infile.flac")
+    decode.add_argument("outfile", type=Path, metavar="outfile.wav")
+    decode.add_argument(
+        "--no-device", action="store_true",
+        help="Decode with the sequential host oracle instead of the "
+             "batched pipeline.")
+    decode.add_argument(
+        "--batch-frames", type=int, default=256,
+        help="Frames per device decode dispatch.", metavar="N")
+    decode.add_argument(
+        "--stream", action="store_true",
+        help="Constant-memory streaming decode: read, decode and write "
+             "in windows instead of loading the whole file.")
+    decode.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="Torch device of the batched pipeline: the card, or the CPU "
+             "(each kernel's plain PyTorch version).")
 
     encode = action.add_parser(ACTION_ENCODE,
                                formatter_class=ArgumentDefaultsHelpFormatter)
@@ -180,6 +255,9 @@ def make_argument_parser() -> ArgumentParser:
 
 def main(argv: list[str] | None = None) -> None:
     args = make_argument_parser().parse_args(argv)
+    if args.action == ACTION_DECODE:
+        cmd_decode(args.infile, args.outfile, args.no_device,
+                   args.batch_frames, args.stream, args.device)
     if args.action == ACTION_ENCODE:
         if isinstance(args.rice_partition_order, str):
             args.rice_partition_order = argparse_range(

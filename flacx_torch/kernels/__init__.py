@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the encode path and their wrappers.
+"""Hand-written CUDA kernels of the encode and decode paths and their
+wrappers.
 
 One module per kernel.  Each holds the kernel's plain PyTorch version
 (``<name>_plain``) and its wrapper (``<name>``): the wrapper takes the

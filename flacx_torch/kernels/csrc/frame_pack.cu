@@ -75,6 +75,7 @@
 // fastest of RUN 2..16 and GROUP 1..8 on the H100 (PERF.md).
 
 #include "common.cuh"
+#include "crc16.cuh"
 
 namespace {
 
@@ -348,42 +349,6 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_symbols(Args a) {
   if (tid == 0) a.counts[b * a.nch + c] = chunk_bits;
 }
 
-// a * b mod P over GF(2), for a, b < 2^16.  The carry-less product comes
-// from integer products of the operands' bits four apart (each bit of a
-// product sums at most 4 terms, whose carries land in the 3-bit holes);
-// its top 15 bits are reduced with the table rows tab[0] (x^16) and
-// tab[1] (x^24).
-__device__ __forceinline__ uint32_t gf_mulmod16(uint32_t a, uint32_t b,
-                                                const uint32_t (*tab)[256]) {
-  const uint32_t a0 = a & 0x1111u, a1 = a & 0x2222u, a2 = a & 0x4444u,
-                 a3 = a & 0x8888u;
-  const uint32_t b0 = b & 0x1111u, b1 = b & 0x2222u, b2 = b & 0x4444u,
-                 b3 = b & 0x8888u;
-  const uint32_t z0 = (a0 * b0) ^ (a1 * b3) ^ (a2 * b2) ^ (a3 * b1);
-  const uint32_t z1 = (a0 * b1) ^ (a1 * b0) ^ (a2 * b3) ^ (a3 * b2);
-  const uint32_t z2 = (a0 * b2) ^ (a1 * b1) ^ (a2 * b0) ^ (a3 * b3);
-  const uint32_t z3 = (a0 * b3) ^ (a1 * b2) ^ (a2 * b1) ^ (a3 * b0);
-  const uint32_t p = (z0 & 0x11111111u) | (z1 & 0x22222222u) |
-                     (z2 & 0x44444444u) | (z3 & 0x88888888u);
-  return (p & 0xffffu) ^ tab[0][(p >> 16) & 0xffu] ^ tab[1][p >> 24];
-}
-
-// Joins the warp's lanes' (crc, x^(8 len)) in lane order into lane 0's:
-// crc(A|B) = crc(A) * x^(8|B|) + crc(B).
-__device__ __forceinline__ void warp_join(uint32_t& crc, uint32_t& pw,
-                                          const uint32_t (*tab)[256]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t c2 = __shfl_down_sync(flacx::FULL_MASK, crc, o);
-    const uint32_t p2 = __shfl_down_sync(flacx::FULL_MASK, pw, o);
-    if ((lane & (2 * o - 1)) == 0) {
-      crc = gf_mulmod16(crc, p2, tab) ^ c2;
-      pw = gf_mulmod16(pw, p2, tab);
-    }
-  }
-}
-
 // Word w of frame b's stream, whose first bit lies in chunk d: from d's
 // scratch row, ORed with the leading bits of the chunks after d.
 __device__ uint32_t stream_word(const Args& a, int b, const uint32_t* offs,
@@ -474,7 +439,7 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_place(Args a) {
       }
     }
   }
-  crc = gf_mulmod16(crc, __ldg(a.pow8 + nb - min(4 * hi, nb)), tab);
+  crc = flacx::gf_mulmod16(crc, __ldg(a.pow8 + nb - min(4 * hi, nb)), tab);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     crc ^= __shfl_xor_sync(flacx::FULL_MASK, crc, o);
@@ -502,10 +467,10 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_place(Args a) {
   crc = 0;
   for (int d = lane * pc; d < min(a.ng, lane * pc + pc); ++d) {
     const uint32_t part = __ldcg(parts + d);
-    crc = gf_mulmod16(crc, part >> 16, tab) ^ (part & 0xffffu);
-    pw = gf_mulmod16(pw, part >> 16, tab);
+    crc = flacx::gf_mulmod16(crc, part >> 16, tab) ^ (part & 0xffffu);
+    pw = flacx::gf_mulmod16(pw, part >> 16, tab);
   }
-  warp_join(crc, pw, tab);
+  flacx::warp_join(crc, pw, tab);
   if (lane == 0) {
     for (uint32_t w = t0; w <= t1 && w < cap; ++w) {
       uint32_t val = 0;

@@ -50,7 +50,7 @@ def _layout_tables(n: int, psize_min: int, device: torch.device,
 
 
 @functools.lru_cache(maxsize=None)
-def _crc_consts(device: torch.device) -> torch.Tensor:
+def crc16_consts(device: torch.device) -> torch.Tensor:
     """The kernel's CRC-16 constants (P the polynomial): the table rows
     ``i * x^(16 + 8k) mod P`` for ``k < 4``, ``i < 256`` (one and four
     bytes a step), then ``x^(8k) mod P`` for ``k`` up to the bytes a block
@@ -165,7 +165,7 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
                        dtype=torch.int32, device=dev)
     launch(bind("frame_pack", "flacx_frame_pack", 16, 12),
            [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
-            _crc_consts(dev), out, length, work],
+            crc16_consts(dev), out, length, work],
            [b, c, h, sh, p, n, psize_min, max_frame_bytes, extra.numel(),
             mult_head, CHUNK_SLOTS, PLACE_CHUNKS], "frame_pack")
     frame_pack.launches += 1

@@ -1,4 +1,4 @@
-"""Plain PyTorch stages of the batched encoder.
+"""Plain PyTorch stages of the batched encoder and decoder.
 
 Each module mirrors its namesake in the JAX package.  Integer stages
 carry unsigned 32-bit symbol values and packed words in ``int64`` masked

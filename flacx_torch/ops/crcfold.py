@@ -155,3 +155,26 @@ def crc16_over_word_rows(words: torch.Tensor,
                                                total + 1)).to(dev)
     fix = inv[torch.clamp(total - lengths.long(), 0, total)]
     return _barrett(_clmul16(folded, fix), 16, CRC16_POLYNOMIAL, 31)
+
+
+def crc16_over_rows(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """CRC-16 of ``data[b, :lengths[b]]`` per row; ``data`` is ``[..., L]``
+    u8 with every byte past ``lengths`` zero.
+
+    The fold uses fixed per-position constants (distance from the END of
+    the whole row); trailing zeros only multiply the true CRC by
+    ``x^(8·pad)``, which one per-row inverse-power lookup undoes.
+    """
+    total = data.shape[-1]
+    dev = data.device
+    tab = power_table(16, CRC16_POLYNOMIAL, total + 1)
+    k = torch.from_numpy(tab[total - 1::-1].copy()).to(dev)
+    b = data.long()
+    prod = torch.zeros_like(b)
+    for t in range(8):
+        prod = prod ^ ((k << t) * ((b >> t) & 1))
+    folded = _barrett(_xor_reduce(prod), 16, CRC16_POLYNOMIAL, 23)
+    inv = torch.from_numpy(inverse_power_table(16, CRC16_POLYNOMIAL,
+                                               total + 1)).to(dev)
+    fix = inv[torch.clamp(total - lengths.long(), 0, total)]
+    return _barrett(_clmul16(folded, fix), 16, CRC16_POLYNOMIAL, 31)

@@ -3,8 +3,7 @@
 The reference reads one PCM frame per call (``readframes(1)``,
 flac/__main__.py:82-92) and converts each sample with ``int.from_bytes`` —
 here whole files move through numpy in one shot (8/16/24/32-bit PCM).
-The port's own copy of the JAX package's ``wavio.py`` (its streaming WAV
-writer belongs to the decode slice).
+The port's own copy of the JAX package's ``wavio.py``.
 """
 
 from __future__ import annotations
@@ -117,3 +116,30 @@ def write_wav(path: Path | str, sample_rate: int, bps: int,
         w.setsampwidth((bps + 7) // 8)
         w.setframerate(sample_rate)
         w.writeframes(payload)
+
+
+def write_wav_chunks(path: Path | str, sample_rate: int, bps: int,
+                     channels: int, chunks) -> int:
+    """Write a stream of int32 ``[n, channels]`` PCM chunks as a WAV file.
+
+    The egress half of the constant-memory decode path: only one chunk is
+    ever materialized as bytes (the ``wave`` module patches the header
+    frame count on close, so the total length need not be known up
+    front).  Returns the number of audio frames written.  Non-byte
+    sample sizes use their ceil(bps/8)-byte container (see
+    :func:`write_wav`).
+    """
+    frames = 0
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth((bps + 7) // 8)
+        w.setframerate(sample_rate)
+        for pcm in chunks:
+            payload = pcm_to_le_bytes(pcm, bps)
+            if bps <= 8:  # WAV stores 8-bit audio unsigned
+                payload = (np.frombuffer(payload, np.int8)
+                           .astype(np.int16) + 128).astype(np.uint8)\
+                    .tobytes()
+            w.writeframes(payload)
+            frames += pcm.shape[0]
+    return frames

@@ -1,4 +1,4 @@
-"""The five CUDA kernels against their plain versions, on the card.
+"""The eight CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA card and skip without one (the CUDA
 kernels have no CPU mode).  Run them on the card with
@@ -20,7 +20,12 @@ to eight segments a row; the all-orders MAC's limb split at its
 edges (two
 tap limbs, the int32 bound met exactly, the M and K tile edges, rows
 shorter than a tile, full-scale 25-bit rows) and the Rice search's
-(nonpositive counts, sums that wrap uint32).  Integers must match
+(nonpositive counts, sums that wrap uint32); the decode kernels on
+frames the encoder writes at blocks 192 to 16384 and 1 to 8 channels,
+escapes of 0 and 7 bits and a 70-bit Rice quotient (the error flag),
+reconstruction from arbitrary inputs at orders 0-32 in every tap bucket
+on both routes and working types, and CRC-16 rows of every length mod 4
+up to 295,168 bytes with one corrupted.  Integers must match
 exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
@@ -34,9 +39,12 @@ import torch
 from flacx_torch.encoder import EncoderConfig
 from flacx_torch.format import FIXED_PREDICTOR_TAPS
 from flacx_torch.kernels import analysis as k_an
+from flacx_torch.kernels import bit_unpack as k_bu
+from flacx_torch.kernels import crc16_rows as k_crc
 from flacx_torch.kernels import frame_pack as k_fp
 from flacx_torch.kernels import lpc_allorder as k_la
 from flacx_torch.kernels import lpc_residual as k_lr
+from flacx_torch.kernels import reconstruct as k_rec
 from flacx_torch.kernels import rice_stats as k_rs
 from flacx_torch.ops import emit, rice
 from flacx_torch.ops.headers import frame_header_symbols
@@ -639,3 +647,224 @@ def test_frame_pack_kernel_full_width_symbols(dev):
     (4608, (0, 1, 2, 3, 4, 5), 16), (16384, tuple(range(15)), 24)])
 def test_frame_pack_kernel_one_frame(dev, n, porders, bits):
     frame_pack_equal(frame_pack_inputs(dev, 1, 2, n, porders, bits))
+
+
+# ---------------------------------------------------------------------------
+# The decode kernels: bit_unpack, reconstruct, crc16_rows
+
+def staged(dev, frames: list[bytes], n: int, c: int, bps: int, ss: int):
+    """Frame bytes staged as the decoder stages them: padded rows, lengths
+    and the walker's output (sample state every ``ss``), on ``dev``."""
+    from flacx_torch.native import scan_frames
+
+    lens = np.array([len(fr) for fr in frames])
+    w = (int(lens.max()) + 255) // 256 * 256
+    rows_np = np.zeros((len(frames), w), np.uint8)
+    for i, fr in enumerate(frames):
+        rows_np[i, :len(fr)] = np.frombuffer(fr, np.uint8)
+    scan = scan_frames(rows_np, np.zeros(len(frames), np.int64), n, c, bps,
+                       state_interval=ss)
+    t = {k: torch.from_numpy(getattr(scan, k)).to(dev) for k in (
+        "channel_code", "kind", "order", "shift", "wasted", "po", "width",
+        "taps", "warmup", "const_val", "ckpt_pos", "ckpt_param", "ckpt_esc",
+        "ckpt_inesc") + (("ckpt_state",) if ss else ())}
+    return (torch.from_numpy(rows_np).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev), t, scan)
+
+
+def unpack_args(rows_t, t, n):
+    return (rows_t, t["ckpt_pos"], t["ckpt_param"], t["ckpt_esc"],
+            t["ckpt_inesc"], t["kind"], t["order"], t["po"], t["width"], n)
+
+
+def hold_unpack(args):
+    before = k_bu.bit_unpack.launches
+    got = k_bu.bit_unpack(*args)
+    ref = k_bu.bit_unpack_plain(*args)
+    torch.cuda.synchronize()
+    assert k_bu.bit_unpack.launches == before + 1
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    return got
+
+
+def hold_reconstruct(*args):
+    before = k_rec.reconstruct.launches
+    got = k_rec.reconstruct(*args)
+    ref = k_rec.reconstruct_plain(*args)
+    torch.cuda.synchronize()
+    assert k_rec.reconstruct.launches == before + 1
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[0], ref[0]), (got[0] != ref[0]).nonzero()[:4]
+
+
+def state_interval(n: int) -> int:
+    return 256 if n >= 2048 else max(64, n // 8)
+
+
+@pytest.mark.parametrize("n,c,bps,lpc", [
+    (192, 1, 16, 8), (1152, 2, 16, 12), (4608, 2, 16, 12),
+    (16384, 6, 24, 32), (1152, 8, 20, 4), (4608, 2, 24, 32)])
+def test_decode_kernels_on_encoded_frames(dev, n, c, bps, lpc):
+    """Frames from the port's encoder on the card (silent, full-scale,
+    noisy and tonal rows: constant, verbatim, escaped and LPC subframes)
+    through all three kernels on both routes and both working types."""
+    from flacx_torch.encoder import BatchEncoder
+
+    f = 4
+    x = rows(n + c, f * c, n, bits=bps).reshape(f, c, n)
+    rng = np.random.default_rng(n)
+    x[2, -1, n // 3:n // 3 + 40] = rng.integers(
+        -2 ** (bps - 1), 2 ** (bps - 1), 40)          # an escaped burst
+    x[3, 0] = rng.integers(-2 ** (bps - 1), 2 ** (bps - 1), n)  # verbatim
+    cfg = EncoderConfig(block_size=n, channels=c, bps=bps, max_lpc_order=lpc,
+                        qlp_precision=15 if lpc > 12 else 12,
+                        sample_rate=96000, partition_orders=tuple(range(6)))
+    frames = BatchEncoder(cfg, batch_frames=f, device=dev).encode_frames(
+        x, 0)
+    for ss in (0, state_interval(n)):
+        rows_t, lens, t, scan = staged(dev, frames, n, c, bps, ss)
+        vals, err = hold_unpack(unpack_args(rows_t, t, n))
+        assert err.item() == 0
+        bucket = k_rec.tap_bucket(int(scan.order.max()))
+        for use_i32 in (True, False):
+            hold_reconstruct(
+                vals, t["taps"], t["shift"], t["order"], t["kind"],
+                t["wasted"], t["warmup"], t["const_val"], t["channel_code"],
+                t.get("ckpt_state"), ss, bucket, use_i32,
+                k_rec.residual_limit(bps, use_i32))
+    ok, all_ok = k_crc.crc16_rows(rows_t, lens)
+    ref = k_crc.crc16_rows_plain(rows_t, lens)
+    assert torch.equal(ok, ref[0]) and all_ok.item() == ref[1].item() == 1
+    assert set(np.unique(scan.kind)) >= {0, 1, 3}, np.unique(scan.kind)
+
+
+def handmade_frame(index: int, long_unary: bool) -> bytes:
+    """A mono 16-bit frame of 256 samples, fixed order 1, partition order
+    2: an escape of 0 bits (zeros), an escape of 7 bits, Rice k = 3 and
+    Rice k = 0, whose first quotient is 70 where ``long_unary``."""
+    from flacx_torch.bitio import BitWriter
+    from flacx_torch.crc import crc8, crc16
+
+    rng = np.random.default_rng(index)
+    w = BitWriter()
+    for value, bits in ((0xFFF8, 16), (8, 4), (9, 4), (0, 4), (4, 3), (0, 1),
+                        (index, 8)):
+        w.write_uint(value, bits)
+    w.write_uint(crc8(w.getvalue()), 8)
+    for value, bits in ((0, 1), (9, 6), (0, 1)):
+        w.write_uint(value, bits)
+    w.write_sint(-1234, 16)                        # warm-up
+    w.write_uint(0, 2)
+    w.write_uint(2, 4)
+    w.write_uint(15, 4)
+    w.write_uint(0, 5)                              # escape of 0 bits
+    w.write_uint(15, 4)
+    w.write_uint(7, 5)
+    for v in rng.integers(-64, 64, 64):
+        w.write_sint(int(v), 7)
+    for k, count in ((3, 64), (0, 64)):
+        w.write_uint(k, 4)
+        for i, u in enumerate(rng.integers(0, 40, count)):
+            q = 70 if long_unary and k == 0 and i == 0 else int(u) >> k
+            w.write_unary(q)
+            w.write_uint(int(u) & ((1 << k) - 1), k)
+    w.pad_to_byte()
+    body = w.getvalue()
+    return body + crc16(body).to_bytes(2, "big")
+
+
+@pytest.mark.parametrize("long_unary", [False, True])
+def test_bit_unpack_kernel_escapes_and_long_unary(dev, long_unary):
+    """Escapes of 0 and 7 bits decode as the plain version does; a 70-bit
+    quotient sets the error flag on the card as in the plain version."""
+    frames = [handmade_frame(0, False), handmade_frame(1, long_unary)]
+    rows_t, lens, t, scan = staged(dev, frames, 256, 1, 16, 0)
+    # the checkpoint at sample 64 carries partition 0's escape of 0 bits
+    assert scan.ckpt_inesc[0, 0, 1] == 1 and scan.ckpt_esc[0, 0, 1] == 0
+    vals, err = hold_unpack(unpack_args(rows_t, t, 256))
+    assert err.item() == int(long_unary)
+    assert not vals[0, 0, :64].any() and vals[0, 0, 64:128].abs().max() <= 64
+    ok, all_ok = k_crc.crc16_rows(rows_t, lens)
+    assert ok.tolist() == [1, 1] and all_ok.item() == 1
+
+
+@pytest.mark.parametrize("route", ["serial", "chunk"])
+@pytest.mark.parametrize("n,c", [(192, 1), (1152, 2), (4608, 2),
+                                 (16384, 6), (1152, 8)])
+def test_reconstruct_kernel_random(dev, n, c, route):
+    """Arbitrary inputs (no stream needed): orders 0-32 in every tap
+    bucket, shifts 0 and 15, every channel code, wasted bits, residuals
+    past the int32 guard in one frame, random sample state; int32 and
+    int64 working types, and the all-fixed batch (the plain version's
+    cumsum route, the kernel's serial IIR: no state)."""
+    rng = np.random.default_rng(n * 10 + c)
+    f = 5
+    ss = state_interval(n) if route == "chunk" else 0
+    ks = -(-n // ss) if ss else 0
+    for bucket in k_rec.TAP_BUCKETS + ("fixed",):
+        kind = rng.integers(0, 4, (f, c)).astype(np.int32)
+        if bucket == "fixed":
+            kind = np.minimum(kind, 2)
+        order = np.where(kind == 2, rng.integers(0, 5, (f, c)), 0)
+        top = 4 if bucket == "fixed" else bucket
+        lpc = rng.integers(1, top + 1, (f, c))
+        lpc.flat[0] = top
+        order = np.where(kind == 3, lpc, order).astype(np.int32)
+        taps = np.where(np.arange(32) < order[..., None],
+                        rng.integers(-2 ** 14, 2 ** 14, (f, c, 32)), 0)
+        taps[kind == 2, :4] = FIXED_PREDICTOR_TAPS[order[kind == 2]]
+        taps[kind == 2, 4:] = 0
+        shift = np.where(kind == 3, rng.choice([0, 15, 9], (f, c)), 0)
+        vals = rng.integers(-2 ** 12, 2 ** 12, (f, c, n))
+        vals[np.arange(n) < order[..., None]] = 0
+        vals[kind == 0] = 0
+        vals[-1, -1, n // 2] = 2 ** 40               # past the int32 guard
+        code = (rng.choice([1, 8, 9, 10], f) if c == 2
+                else np.full(f, c - 1))
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in dict(
+                 vals=vals, taps=taps.astype(np.int32),
+                 shift=shift.astype(np.int32), order=order, kind=kind,
+                 wasted=rng.integers(0, 3, (f, c)).astype(np.int32),
+                 warmup=rng.integers(-2 ** 15, 2 ** 15, (f, c, 32)),
+                 const_val=rng.integers(-2 ** 15, 2 ** 15, (f, c)),
+                 code=code.astype(np.int32)).items()}
+        state = (torch.from_numpy(rng.integers(
+            -2 ** 15, 2 ** 15, (f, c, ks, 32)).astype(np.int32)).to(dev)
+            if ss and bucket != "fixed" else None)
+        t_bucket = 4 if bucket == "fixed" else bucket
+        for use_i32 in (True, False):
+            hold_reconstruct(
+                t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+                t["wasted"], t["warmup"], t["const_val"], t["code"], state,
+                ss, t_bucket, use_i32, k_rec.residual_limit(16, use_i32),
+                int(order.max()) if bucket == "fixed" else None)
+
+
+@pytest.mark.parametrize("w", [256, 4096, 295168])
+def test_crc16_rows_kernel(dev, w):
+    """Lengths of every residue mod 4, the whole row, one corrupted row."""
+    from flacx_torch.native import crc16_rows as host_crc16
+
+    rng = np.random.default_rng(w)
+    f = 9
+    rows_np = rng.integers(0, 256, (f, w)).astype(np.uint8)
+    lens = np.minimum(rng.integers(3, w + 1, f) // 4 * 4 + np.arange(f) % 4,
+                      w)
+    lens[0] = w
+    crc = host_crc16(rows_np, lens - 2)
+    for i in range(f):
+        rows_np[i, lens[i] - 2] = crc[i] >> 8
+        rows_np[i, lens[i] - 1] = crc[i] & 0xFF
+    for bad in (None, 4):
+        if bad is not None:
+            rows_np[bad, lens[bad] // 2] ^= 0x40
+        args = (torch.from_numpy(rows_np).to(dev),
+                torch.from_numpy(lens.astype(np.int32)).to(dev))
+        before = k_crc.crc16_rows.launches
+        ok, all_ok = k_crc.crc16_rows(*args)
+        ref_ok, ref_all = k_crc.crc16_rows_plain(*args)
+        torch.cuda.synchronize()
+        assert k_crc.crc16_rows.launches == before + 1
+        assert torch.equal(ok, ref_ok) and torch.equal(all_ok, ref_all)
+        assert ok.tolist() == [int(i != bad) for i in range(f)]

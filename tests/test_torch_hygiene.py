@@ -30,8 +30,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "flacx_torch").rglob("*.py")) + sorted(
-    (ROOT / "flacx_torch").rglob("*.cu*")) + [ROOT / "chip_smoke.py",
-                                             ROOT / "tools/profile_torch.py"]
+    (ROOT / "flacx_torch").rglob("*.cu*")) + sorted(
+    (ROOT / "flacx_torch").rglob("*.cc")) + [ROOT / "chip_smoke.py",
+                                            ROOT / "tools/profile_torch.py"]
 
 
 def test_port_imports_with_jax_and_flacx_blocked():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of a flacx_torch encode goes, on one card.
+"""Where the time of a flacx_torch encode or decode goes, on one card.
 
-    python3 tools/profile_torch.py [--config headline|best|hires|hires6]
-                                   [--block N] [--batches 3]
+    python3 tools/profile_torch.py [--config headline|best|hires|hires6|
+                                    decode] [--block N] [--batches 3]
+                                   [--batch-frames 256]
                                    [--out profile_out]
 
 Encodes one batch with ``BatchEncoder.encode_batch_device`` under
@@ -14,7 +15,13 @@ search over the windows Tukey(0.5), Hann and flattop, f64 analysis) at
 ``--block`` 4608, 2304 or 1152; ``--config hires`` is the hi-res encode
 (24-bit, block 16384, LPC order 32, partition orders 0..15) of 128
 stereo frames, ``--config hires6`` of 64 5.1 frames, the PCM of
-``chip_smoke.py``'s hi-res phases.  Prints:
+``chip_smoke.py``'s hi-res phases.  ``--config decode`` decodes the
+headline batch's 1024 frames, encoded on the card into a FLAC stream,
+with ``decoder.decode_array`` at ``--batch-frames`` frames a batch (the
+CLI's default 256), ``--batches`` times; its numbers are a decode batch's
+and its host stages the decoder's (frame scan, row staging, the C++
+walker, the H2D copies, the kernels' enqueue, the flags' read, the D2H
+copy).  Prints:
 the wall time per batch, the device time per batch (sum of kernel times)
 and the device's idle share of the window, the kernel time and host time
 of each pipeline stage (profiler ranges around the stage functions), and
@@ -52,13 +59,23 @@ STAGES = {
 }
 #: stages that run inside another stage (not added to the staged total)
 NESTED = {"frame_pack kernel"}
+#: the decode's stages, as STAGES
+DECODE_STAGES = {
+    "frame scan": ("flacx_torch.decoder", "_scan_frame_offsets"),
+    "row staging": ("flacx_torch.decoder", "scatter_rows"),
+    "walker": ("flacx_torch.decoder", "scan_frames"),
+    "copy H2D": ("flacx_torch.decoder", "_upload"),
+    "kernels (enqueue)": ("flacx_torch.decoder", "_device_decode"),
+    "flags (sync)": ("flacx_torch.decoder", "_ok"),
+    "copy D2H": ("flacx_torch.decoder", "_host_pcm"),
+}
 
 
-def annotate_stages(torch) -> None:
+def annotate_stages(torch, stages: dict) -> None:
     """Wrap each stage function in a profiler range of the stage's name."""
     import importlib
 
-    for label, (mod_name, attr) in STAGES.items():
+    for label, (mod_name, attr) in stages.items():
         module = importlib.import_module(mod_name)
         fn = getattr(module, attr)
 
@@ -86,7 +103,10 @@ def self_device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("headline", "best", "hires",
-                                         "hires6"), default="headline")
+                                         "hires6", "decode"),
+                    default="headline")
+    ap.add_argument("--batch-frames", type=int, default=256,
+                    help="frames a decode batch of --config decode")
     ap.add_argument("--block", type=int, default=4608,
                     help="block size of --config best")
     ap.add_argument("--batches", type=int, default=3)
@@ -102,7 +122,9 @@ def main() -> int:
                             synth_pcm)
     from flacx_torch.encoder import BatchEncoder, EncoderConfig
 
-    annotate_stages(torch)
+    if args.config == "decode":
+        return profile_decode(torch, args)
+    annotate_stages(torch, STAGES)
     if args.config.startswith("hires"):
         n = HIRES_N
         channels, frames, _ = HIRES[args.config]
@@ -119,24 +141,60 @@ def main() -> int:
         enc.encode_batch_device(planar, 0)
     torch.cuda.synchronize()
 
+    print(f"card {card_line()}; torch {torch.__version__}; config "
+          f"{args.config}, block {n}, {frames} frames x {cfg.channels} "
+          f"channels per batch")
+    report(torch, lambda: enc.encode_batch_device(planar, 0), args.batches,
+           args.batches, "_encode_batch", args.out)
+    return 0
+
+
+def profile_decode(torch, args) -> int:
+    """``--config decode``: the headline frames as a FLAC stream, decoded
+    ``args.batches`` times under the profiler."""
+    from chip_smoke import B, N, SEED, blocks_of, card_line, flac_stream, \
+        synth_pcm
+    from flacx_torch import decoder
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+
+    pcm = synth_pcm(np.random.default_rng(SEED), N * B)
+    frames = BatchEncoder(EncoderConfig(block_size=N, max_lpc_order=12),
+                          batch_frames=B).encode_frames(blocks_of(pcm, N), 0)
+    data = flac_stream(frames, pcm, 44100, 16, N)
+    annotate_stages(torch, DECODE_STAGES)
+    for _ in range(2):                                   # warm-up, build
+        _, got = decoder.decode_array(data, batch_frames=args.batch_frames)
+    if not np.array_equal(got, pcm):
+        raise AssertionError("decode is not bit-exact")
+    batches = -(-B // args.batch_frames)
+    print(f"card {card_line()}; torch {torch.__version__}; config decode, "
+          f"block {N}, {B} frames x 2 channels in {batches} batches of "
+          f"{args.batch_frames}, {args.batches} decodes")
+    report(torch, lambda: decoder.decode_array(
+        data, batch_frames=args.batch_frames), args.batches,
+        args.batches * batches, "decode_array", args.out)
+    return 0
+
+
+def report(torch, fn, runs: int, batches: int, rest: str, out: str) -> None:
+    """Run ``fn`` ``runs`` times under the profiler and print the numbers
+    per batch (``batches`` in all)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.batches):
-            enc.encode_batch_device(planar, 0)
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.batches
+        wall_ms = (time.perf_counter() - t0) * 1e3 / batches
     events = prof.key_averages()
     kernels = [e for e in events if self_device_us(e) > 0
                and "CUDA" in str(getattr(e, "device_type", "CUDA"))
                and not e.key.startswith("stage: ")]
-    dev_ms = sum(self_device_us(e) for e in kernels) / 1e3 / args.batches
-    n_kernels = sum(e.count for e in kernels) / args.batches
+    dev_ms = sum(self_device_us(e) for e in kernels) / 1e3 / batches
+    n_kernels = sum(e.count for e in kernels) / batches
 
-    print(f"card {card_line()}; torch {torch.__version__}; config "
-          f"{args.config}, block {n}, {frames} frames x {cfg.channels} "
-          f"channels per batch")
     print(f"wall {wall_ms:.3f} ms per batch; device busy {dev_ms:.3f} ms "
           f"per batch ({n_kernels:.0f} kernel launches); device idle share "
           f"{max(0.0, 1 - dev_ms / wall_ms):.4f}")
@@ -146,27 +204,26 @@ def main() -> int:
     stages = [e for e in events if e.key.startswith("stage: ")
               and "CUDA" not in str(getattr(e, "device_type", "CPU"))]
     for e in sorted(stages, key=lambda e: e.cpu_time_total, reverse=True):
-        k_ms = device_us(e) / 1e3 / args.batches
-        h_ms = e.cpu_time_total / 1e3 / args.batches
+        k_ms = device_us(e) / 1e3 / batches
+        h_ms = e.cpu_time_total / 1e3 / batches
         if e.key[7:] not in NESTED:
             k_staged += k_ms
             h_staged += h_ms
         print(f"  {e.key[7:]:<28} kernel {k_ms:8.3f}  host {h_ms:8.3f}")
-    print(f"  {'rest of _encode_batch':<28} kernel {dev_ms - k_staged:8.3f}"
+    print(f"  {'rest of ' + rest:<28} kernel {dev_ms - k_staged:8.3f}"
           f"  host {wall_ms - h_staged:8.3f}")
     print("top device kernels (ms per batch):")
     for e in sorted(kernels, key=self_device_us, reverse=True)[:15]:
-        print(f"  {self_device_us(e) / 1e3 / args.batches:8.3f}  "
-              f"x{e.count // args.batches:<5} {e.key[:90]}")
+        print(f"  {self_device_us(e) / 1e3 / batches:8.3f}  "
+              f"x{e.count / batches:<5.4g} {e.key[:90]}")
 
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
+    path = Path(out)
+    path.mkdir(parents=True, exist_ok=True)
     sort = ("self_device_time_total"
             if hasattr(kernels[0], "self_device_time_total")
             else "self_cuda_time_total")
-    (out / "profile_torch.txt").write_text(
+    (path / "profile_torch.txt").write_text(
         events.table(sort_by=sort, row_limit=80))
-    return 0
 
 
 if __name__ == "__main__":
