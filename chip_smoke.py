@@ -911,8 +911,9 @@ def decode_row(torch, name: str, wrapper: str, args: tuple) -> dict:
     if wrapper == "reconstruct":
         vals, order, kind, use_i32 = args[0], args[3], args[4], args[12]
         # a multiply-add a tap up to each subframe's order and sample, two
-        # operations (four in the int64 MAC), and 8 a sample besides
-        # (merge, shift, wasted bits, undecorrelation, store)
+        # operations (four in the int64 MAC; on the all-fixed route the
+        # add and the carry of an integration level), and 8 a sample
+        # besides (merge, shift, wasted bits, undecorrelation, store)
         macs = int((order.long() * (kind >= 2)).sum()) * vals.shape[-1]
         return kernel_row(
             torch, name, "reconstruct_kernel", k_rec.reconstruct,

@@ -371,7 +371,7 @@ def _decode_rows_device(rows: np.ndarray, lens: np.ndarray, n: int, c: int,
     use_i32 = eff_max + max(sum_abs, 1).bit_length() + 2 <= 31
     # all-fixed batches (constant, verbatim, fixed: shift 0, binomial
     # taps) take no sample state, as in the JAX package: the plain
-    # version integrates them with cumsums, the kernel runs its serial IIR
+    # version integrates them with cumsums, the kernel with block scans
     fixed_max = max_order if bool((scan.kind <= 2).all()) else None
     if fixed_max is not None:
         state_ss = 0

@@ -1,6 +1,7 @@
 """The ``bit_unpack`` kernel: every residual and verbatim symbol of a
 batch of frames, decoded in parallel from the host walker's checkpoints
-(one thread per chunk of 64 symbols).
+(one thread per chunk of 64 symbols, each block walking its span of the
+rows from a copy in shared memory).
 
 Replaces the decode path's XLA scan ``flacx/ops/bitunpack.py::
 parse_residual_chunks`` (with ``bytes_to_words``); flacx has no Pallas

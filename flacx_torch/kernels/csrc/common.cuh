@@ -41,4 +41,36 @@ __device__ __forceinline__ int32_t zigzag32(int32_t r) {
   return (int32_t)(((uint32_t)r << 1) ^ (uint32_t)(r >> 31));
 }
 
+// Asynchronous global -> shared copies (sm_80+): 16 bytes (both addresses
+// 16-byte aligned, bypassing L1), 8 or 4 bytes; a thread's copies since its
+// last commit form one group, and wait<N> returns once at most N of its
+// groups are still in flight.  A __syncthreads after the wait makes every
+// thread's copies visible to the block.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace flacx

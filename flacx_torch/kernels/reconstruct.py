@@ -1,18 +1,18 @@
 """The ``reconstruct`` kernel: int32 PCM ``[F, n, C]`` of a batch of
 frames from their decoded residuals — warm-up and constants merged, the
-predictor's IIR, wasted bits, stereo undecorrelation and the interleave
-in one launch.
+predictor, wasted bits, stereo undecorrelation and the interleave in one
+launch.
 
 Replaces the decode path's XLA scans ``flacx/ops/reconstruct.py::
 reconstruct_predicted``, ``reconstruct_predicted_chunks`` and
 ``reconstruct_fixed_parallel``, ``undo_decorrelation``, and the glue of
 ``flacx/decoder.py:399-427``; flacx has no Pallas kernel there.  Source,
-bound and design in ``csrc/reconstruct.cu``.  Its routes: one thread per
-(frame, channel, chunk of ``state_ss`` samples) where the walker gave
-sample state, else one per (frame, channel) over all samples; int32 or
-int64 working type (``use_i32``); fixed subframes run the same IIR with
-the walker's binomial taps, which gives the integers of flacx's cumsum
-route.
+bound and design in ``csrc/reconstruct.cu``.  Its routes: an all-fixed
+batch (``fixed_max``) as flacx's parallel integration, one block a frame;
+else the IIR, one thread per (frame, channel, chunk of ``state_ss``
+samples) where the walker gave sample state, or per (frame, channel) over
+all samples, residuals staged through shared memory; int32 or int64
+working type (``use_i32``).
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ from flacx_torch.ops.reconstruct import (reconstruct_fixed_parallel,
 
 #: tap buckets: the batch's largest order rounded up to one of these
 TAP_BUCKETS = (4, 8, 12, 16, 32)
-#: (frame, chunk) groups a block holds at most, times its channels
-BLOCK_LANES = 128
+#: the all-fixed route's integrations at most (fixed predictor orders)
+FIXED_MAX = 4
 
 
 def tap_bucket(max_order: int) -> int:
@@ -98,9 +98,9 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
       use_i32: the int32 working type (exact under flacx's bound).
       lim: :func:`residual_limit`; ``err`` is set where a residual passes
         ``2^lim``.
-      fixed_max: the batch's largest order where every subframe is
-        constant, verbatim or fixed (the plain version's cumsum route,
-        which takes no state).
+      fixed_max: the batch's largest order (0..4) where every subframe
+        is constant, verbatim or fixed: flacx's parallel integration (the
+        plain version's cumsums), which takes no state.
     """
     if fixed_max is not None and state is not None:
         raise ValueError("reconstruct: the all-fixed route takes no state")
@@ -127,14 +127,15 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
                              f"{n} at interval {state_ss}")
     if t not in TAP_BUCKETS or not 1 <= c <= 8:
         raise ValueError(f"reconstruct: tap bucket {t}, {c} channels")
-    groups = f * ks
-    per_block = max(1, min(BLOCK_LANES // c, groups // 264))
+    if fixed_max is not None and not 0 <= fixed_max <= FIXED_MAX:
+        raise ValueError(f"reconstruct: fixed_max {fixed_max}")
     pcm = torch.empty((f, n, c), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     launch(bind("reconstruct", "flacx_reconstruct", 12, 9),
            [vals, taps, shift, order, kind, wasted, warmup, const_val, state,
             channel_code, pcm, err],
-           [f, c, n, t, int(not use_i32), lim, state_ss, ks, per_block],
+           [f, c, n, t, int(not use_i32), lim, state_ss, ks,
+            -1 if fixed_max is None else fixed_max],
            "reconstruct")
     reconstruct.launches += 1
     return pcm, err

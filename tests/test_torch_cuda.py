@@ -23,9 +23,14 @@ shorter than a tile, full-scale 25-bit rows) and the Rice search's
 (nonpositive counts, sums that wrap uint32); the decode kernels on
 frames the encoder writes at blocks 192 to 16384 and 1 to 8 channels,
 escapes of 0 and 7 bits and a 70-bit Rice quotient (the error flag),
+``bit_unpack`` blocks whose staged span crosses subframes and frames of
+unequal length, with checkpoints past the row's end and before the span,
 reconstruction from arbitrary inputs at orders 0-32 in every tap bucket
-on both routes and working types, and CRC-16 rows of every length mod 4
-up to 295,168 bytes with one corrupted.  Integers must match
+on both routes and working types, the all-fixed route at block 16384 on
+1-8 channels with integrations that wrap and on blocks of 1, 3 and 4097
+samples at every integration count, a chunk-route batch of the
+headline's size (288 blocks), and CRC-16 rows of every length mod 4 up to
+295,168 bytes with one corrupted.  Integers must match
 exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
@@ -796,7 +801,7 @@ def test_reconstruct_kernel_random(dev, n, c, route):
     bucket, shifts 0 and 15, every channel code, wasted bits, residuals
     past the int32 guard in one frame, random sample state; int32 and
     int64 working types, and the all-fixed batch (the plain version's
-    cumsum route, the kernel's serial IIR: no state)."""
+    cumsums, the kernel's tiled block scans: no state)."""
     rng = np.random.default_rng(n * 10 + c)
     f = 5
     ss = state_interval(n) if route == "chunk" else 0
@@ -839,6 +844,117 @@ def test_reconstruct_kernel_random(dev, n, c, route):
                 t["wasted"], t["warmup"], t["const_val"], t["code"], state,
                 ss, t_bucket, use_i32, k_rec.residual_limit(16, use_i32),
                 int(order.max()) if bucket == "fixed" else None)
+
+
+def fixed_inputs(rng, dev, f: int, c: int, n: int, big: int):
+    """An all-fixed batch: constant, verbatim and fixed orders 0-4 (one
+    order 4), residuals of up to ``big`` bits, warm-up values of up to 31
+    bits, wasted bits, every stereo channel code."""
+    kind = rng.integers(0, 3, (f, c)).astype(np.int32)
+    order = np.where(kind == 2, rng.integers(0, 5, (f, c)), 0)
+    kind.flat[0], order.flat[0] = 2, 4
+    order = order.astype(np.int32)
+    taps = np.zeros((f, c, 32), np.int64)
+    taps[kind == 2, :4] = FIXED_PREDICTOR_TAPS[order[kind == 2]]
+    vals = rng.integers(-2 ** big, 2 ** big, (f, c, n))
+    vals[np.arange(n) < order[..., None]] = 0
+    vals[kind == 0] = 0
+    code = (rng.choice([1, 8, 9, 10], f) if c == 2 else np.full(f, c - 1))
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in dict(
+        vals=vals, taps=taps.astype(np.int32),
+        shift=np.zeros((f, c), np.int32), order=order, kind=kind,
+        wasted=rng.integers(0, 3, (f, c)).astype(np.int32),
+        warmup=rng.integers(-2 ** 31, 2 ** 31, (f, c, 32)),
+        const_val=rng.integers(-2 ** 31, 2 ** 31, (f, c)),
+        code=code.astype(np.int32)).items()}
+    return t, int(order.max())
+
+
+@pytest.mark.parametrize("c", [1, 2, 6, 8])
+@pytest.mark.parametrize("use_i32", [True, False])
+def test_reconstruct_kernel_all_fixed_wraps(dev, c, use_i32):
+    """The all-fixed route at block 16384 (every tile and warp total of a
+    block, 1-16 warps a channel): residuals of 30 bits, whose fourfold
+    integrations wrap int32 and grow past 2^64's low bits, integer for
+    integer with the plain version's cumsums in both working types."""
+    rng = np.random.default_rng(c * 2 + use_i32)
+    n = 16384
+    t, fixed_max = fixed_inputs(rng, dev, 3, c, n, 30)
+    hold_reconstruct(t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+                     t["wasted"], t["warmup"], t["const_val"], t["code"],
+                     None, 0, 4, use_i32, k_rec.residual_limit(24, use_i32),
+                     fixed_max)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4097, 4608])
+def test_reconstruct_kernel_all_fixed_edges(dev, n):
+    """All-fixed blocks shorter than the warm-up and than a run, a block
+    of odd length (runs off the 16-byte grid), and every fixed_max from 0
+    to 4 on the same inputs."""
+    rng = np.random.default_rng(n)
+    t, top = fixed_inputs(rng, dev, 4, 2, n, 20)
+    for fixed_max in range(top, 5):
+        for use_i32 in (True, False):
+            hold_reconstruct(
+                t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+                t["wasted"], t["warmup"], t["const_val"], t["code"], None, 0,
+                4, use_i32, k_rec.residual_limit(16, use_i32), fixed_max)
+
+
+@pytest.mark.parametrize("t_bucket,use_i32", [(12, True), (32, False)])
+def test_reconstruct_kernel_chunk_many_blocks(dev, t_bucket, use_i32):
+    """A chunk-route batch the size of the headline's (256 frames of two
+    channels at block 4608, 18 chunks a channel): 288 blocks, several on
+    each SM, every block's staged windows and stores; LPC orders up to
+    the tap bucket, random sample state."""
+    rng = np.random.default_rng(t_bucket)
+    f, c, n, ss = 256, 2, 4608, 256
+    ks = n // ss
+    order = rng.integers(1, t_bucket + 1, (f, c)).astype(np.int32)
+    taps = np.where(np.arange(32) < order[..., None],
+                    rng.integers(-2 ** 10, 2 ** 10, (f, c, 32)), 0)
+    vals = rng.integers(-2 ** 12, 2 ** 12, (f, c, n))
+    vals[np.arange(n) < order[..., None]] = 0
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in dict(
+        vals=vals, taps=taps.astype(np.int32),
+        shift=rng.integers(9, 13, (f, c)).astype(np.int32), order=order,
+        kind=np.full((f, c), 3, np.int32),
+        wasted=np.zeros((f, c), np.int32),
+        warmup=rng.integers(-2 ** 15, 2 ** 15, (f, c, 32)),
+        const_val=np.zeros((f, c), np.int64),
+        code=rng.choice([1, 8, 9, 10], f).astype(np.int32),
+        state=rng.integers(-2 ** 15, 2 ** 15, (f, c, ks, 32)).astype(
+            np.int32)).items()}
+    hold_reconstruct(t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+                     t["wasted"], t["warmup"], t["const_val"], t["code"],
+                     t["state"], ss, t_bucket, use_i32,
+                     k_rec.residual_limit(16, use_i32))
+
+
+@pytest.mark.parametrize("n,c", [(192, 1), (1152, 2), (4608, 2)])
+def test_bit_unpack_kernel_span_crosses_frames(dev, n, c):
+    """Blocks of 64 lanes whose staged span crosses subframes and frames
+    (3 to 144 lanes a frame), frames of unequal length (row padding inside
+    the span), then corrupt checkpoints: a cursor past its row's end and
+    one that jumps backwards (reads outside the span), the error flag and
+    values as the plain version's."""
+    from flacx_torch.encoder import BatchEncoder
+
+    f = 24
+    x = rows(n + c, f * c, n, bits=16).reshape(f, c, n)
+    x[::3] //= 64                                    # shorter frames
+    cfg = EncoderConfig(block_size=n, channels=c, max_lpc_order=8)
+    frames = BatchEncoder(cfg, batch_frames=f, device=dev).encode_frames(
+        x, 0)
+    assert len({len(fr) for fr in frames}) > 1
+    rows_t, lens, t, scan = staged(dev, frames, n, c, 16, 0)
+    vals, err = hold_unpack(unpack_args(rows_t, t, n))
+    assert err.item() == 0
+    for lane, pos in (((f - 1, c - 1, -1), rows_t.shape[1] * 8 - 3),
+                      ((f // 2, 0, 0), 40)):
+        bad = dict(t, ckpt_pos=t["ckpt_pos"].clone())
+        bad["ckpt_pos"][lane] = pos
+        assert hold_unpack(unpack_args(rows_t, bad, n))[1].item() == 1
 
 
 @pytest.mark.parametrize("w", [256, 4096, 295168])

@@ -4,13 +4,15 @@ more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
 
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
         [--kernel {analysis,frame_pack,lpc_allorder,lpc_residual_res,
-                   lpc_residual_stats,lpc_residual_zz,rice_stats} ...]
+                   lpc_residual_stats,lpc_residual_zz,rice_stats,
+                   bit_unpack,reconstruct,crc16_rows} ...]
         [--path {headline,best4608,best2304,best1152,hires,hires6,
-                 file_default,file_b1152,file_best24} ...]
+                 file_default,file_b1152,file_best24,decode_headline,
+                 decode_fixed,decode_hires,decode_hires6} ...]
 
-Encodes one batch of each path (the data of ``chip_smoke.py``: the
-1024-frame headline batch at block 4608; the best-compression batch at
-block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch;
+Encodes one batch of each encode path (the data of ``chip_smoke.py``:
+the 1024-frame headline batch at block 4608; the best-compression batch
+at block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch;
 ``file_default`` and ``file_b1152`` a 256-frame batch of the CD rip at
 the defaults and at ``-b 1152``; ``file_best24`` the 256-frame ``--best``
 batches of the 24-bit master at blocks 4608, 2304 and 1152) with the
@@ -21,10 +23,16 @@ median kernel time of ``--reps`` launches under the profiler for each
 kernel (the kernels of one wrapper summed), and the card's name and
 power limit.  ``analysis`` is timed over ALL of a batch's launches,
 summed (a checkout that launches once per window and one that launches
-once for every window time the same work).  A kernel the path does not
-run gets ``null``.  Run it on two checkouts in one call (A, B, B, A) to
-compare two versions of a kernel at these shapes.  Defaults:
-``frame_pack`` at the headline.  Needs CUDA.
+once for every window time the same work).  The decode paths
+(``decode_<stream>``) decode the first 256-frame batch of a stream of
+``chip_smoke.py``'s ``decode`` phase (the headline PCM with its LPC
+frames or with fixed predictors only, the hi-res stereo or 5.1 frames)
+with ``decoder.decode_array`` at 256 frames a batch and time
+``bit_unpack``, ``reconstruct`` and ``crc16_rows`` on the arguments of
+their first launch.  A kernel the path does not run gets ``null``.  Run
+it on two checkouts in one call (A, B, B, A) to compare two versions of
+a kernel at these shapes.  Defaults: ``frame_pack`` at the headline.
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -37,7 +45,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
-         "file_default", "file_b1152", "file_best24")
+         "file_default", "file_b1152", "file_best24", "decode_headline",
+         "decode_fixed", "decode_hires", "decode_hires6")
+#: the decode kernels: (a substring of the CUDA symbol in every version,
+#: wrapper, plain version), all in ``flacx_torch.kernels.<wrapper>``
+DECODE_KERNELS = {
+    "bit_unpack": ("bit_unpack_kernel", "bit_unpack", "bit_unpack_plain"),
+    "reconstruct": ("reconstruct_kernel", "reconstruct",
+                    "reconstruct_plain"),
+    "crc16_rows": ("crc16_rows_kernel", "crc16_rows", "crc16_rows_plain"),
+}
 #: kernel -> (a substring of its CUDA symbol in every version, module,
 #: wrapper, plain version)
 KERNELS = {
@@ -133,12 +150,64 @@ def batches(cs, path: str):
                    cs.blocks_of(master, bs, np.int32)[:cs.FILE_BATCH])
 
 
+def decode_stream(cs, label: str) -> bytes:
+    """The first 256 frames of the decode phase's stream ``label`` of
+    ``chip_smoke.py`` (one batch at the CLI's default) as a FLAC stream."""
+    import numpy as np
+
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+
+    bf = cs.DECODE_BATCHES[label][0]
+    if label in ("headline", "fixed"):
+        pcm = cs.synth_pcm(np.random.default_rng(cs.SEED), cs.N * cs.B)
+        pcm = pcm[:cs.N * bf]
+        cfg = EncoderConfig(block_size=cs.N,
+                            max_lpc_order=12 if label == "headline" else 0)
+        frames = BatchEncoder(cfg, batch_frames=bf).encode_frames(
+            cs.blocks_of(pcm, cs.N), 0)
+        return cs.flac_stream(frames, pcm, 44100, 16, cs.N)
+    channels, count, _ = cs.HIRES[label]
+    pcm = cs.hires_pcm(channels, count)
+    enc = BatchEncoder(cs.hires_config(channels), batch_frames=count)
+    frames = enc.encode_frames(cs.blocks_of(pcm, cs.HIRES_N, np.int32), 0)
+    return cs.flac_stream(frames, pcm, 96000, 24, cs.HIRES_N)
+
+
+def decode_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
+    """Each decode kernel's median ms (``None`` for an encode kernel) on
+    the arguments of its first launch in the decode of ``path``, after
+    checking it against its plain version on them."""
+    import importlib
+
+    import flacx_torch.decoder as dec
+
+    data = decode_stream(cs, path[len("decode_"):])
+    names = [k for k in kernels if k in DECODE_KERNELS]
+    captured, _, restore = cs.spy_decoder(names)
+    try:
+        dec.decode_array(data, device="cuda")
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launches = {}
+    for k in names:
+        symbol, wrapper, plain = DECODE_KERNELS[k]
+        mod = importlib.import_module(f"flacx_torch.kernels.{wrapper}")
+        fn, args = getattr(mod, wrapper), captured[k]
+        cs.exact(torch, fn(*args), getattr(mod, plain)(*args))
+        launches[symbol] = (lambda f=fn, a=args: f(*a))
+    ms = cs.kernel_times(torch, launches, reps) if launches else {}
+    return {k: ms[DECODE_KERNELS[k][0]] if k in names else None
+            for k in kernels}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT),
                     help="checkout whose flacx_torch to time")
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
+    ap.add_argument("--kernel", nargs="+",
+                    choices=sorted(KERNELS) + sorted(DECODE_KERNELS),
                     default=["frame_pack"])
     ap.add_argument("--path", nargs="+", choices=PATHS, default=["headline"])
     args = ap.parse_args()
@@ -165,8 +234,15 @@ def main() -> int:
         raise RuntimeError(f"flacx_torch came from {flacx_torch.__file__}")
     card = cs.card_line()
     for path in args.path:
+        if path.startswith("decode_"):
+            print(json.dumps({
+                "tree": args.tree, "path": path,
+                "ms": decode_ms(torch, cs, path, args.kernel, args.reps),
+                "reps": args.reps, "card": card}), flush=True)
+            continue
         for label, enc, planar in batches(cs, path):
-            others = [k for k in args.kernel if k != "analysis"]
+            others = [k for k in args.kernel
+                      if k != "analysis" and k in KERNELS]
             captured, restore = cs.capture_main_path_inputs(others)
             calls, restore_an = capture_every_call("analysis")
             try:
@@ -177,6 +253,9 @@ def main() -> int:
             torch.cuda.synchronize()
             launches, out = {}, {}
             for kernel in args.kernel:
+                if kernel in DECODE_KERNELS:
+                    out[kernel] = None
+                    continue
                 symbol, module, wrapper, plain = KERNELS[kernel]
                 mod = importlib.import_module(f"flacx_torch.kernels.{module}")
                 fn = getattr(mod, wrapper)
@@ -206,7 +285,7 @@ def main() -> int:
             if launches:
                 ms = cs.kernel_times(torch, launches, args.reps)
                 out.update({k: ms[KERNELS[k][0]] for k in args.kernel
-                            if KERNELS[k][0] in ms})
+                            if k in KERNELS and KERNELS[k][0] in ms})
             print(json.dumps({
                 "tree": args.tree, "path": label,
                 "ms": {k: out[k] for k in args.kernel},
