@@ -3,11 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the eight CUDA kernels from ``flacx_torch/kernels/csrc`` and runs
-these paths on the card, the encodes through ``BatchEncoder``:
+Builds the nine CUDA kernel libraries from ``flacx_torch/kernels/csrc``
+and runs these paths on the card, the encodes through ``BatchEncoder``:
 
 * the headline encode, 16-bit stereo: one 1024-frame batch at block
   4608, LPC order 12;
+* conformance mode (``conformance``): the same batch with
+  ``EncoderConfig(conformance=True)`` (the reference encoder's choices;
+  ``reference_lpc``, ``abs_residual_sums``, ``lpc_residual`` zz mode,
+  ``frame_pack``): every CRC-16, the first 256 frames byte-equal to the
+  plain CPU path, 16 sampled frames equal to the oracle encoder's, two
+  crafted batches on the overflow route (a spike in low noise, full-scale
+  noise past the frame buffer), the timing, and the CD rip of the file
+  phase through ``pipeline.encode_to_file(conformance=True)``;
 * the best-compression encode (``encode --best``): the same PCM cut into
   blocks of 4608, 2304 and 1152 (1024, 2048 and 4096 frames), each
   encoded with the exact order search over the windows Tukey(0.5), Hann
@@ -30,7 +38,9 @@ these paths on the card, the encodes through ``BatchEncoder``:
   streams of the headline batch (at 256 and 1024 frames a batch), of the
   same PCM with fixed predictors only, and of the two hi-res batches, each
   bit-exact against its PCM with every batch on the device route (the
-  ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels).
+  ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels), then the
+  headline stream forced down the host parse (``reconstruct``'s serial
+  route, row ``reconstruct_serial@headline``).
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes its path gives it, those of the best path at each block size.  For
@@ -45,8 +55,9 @@ arguments of their first launch in each stream's decode (rows
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
-path, ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires``
-/ ``<mode>@hires6`` on the hi-res ones;
+path, ``<kernel>@conformance`` in conformance mode,
+``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires`` /
+``<mode>@hires6`` on the hi-res ones;
 ``launches`` counts the launches of that path's counted encode, which
 runs ``batches`` batches), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -173,14 +184,18 @@ HEADLINE_SPIES = ("analysis", "lpc_residual_stats", "lpc_residual_zz",
                   "rice_stats", "frame_pack")
 
 
-def capture_main_path_inputs(names=HEADLINE_SPIES, per_block=False):
-    """Wrap each named kernel wrapper where the encoder calls it, so one
-    run of the path records the arguments of every kernel's first launch
-    (positional arguments, keywords folded in by name order), under its
-    name, or with ``per_block`` under ``(name, block size)``; returns
-    ``(captured, restore)``."""
+def capture_main_path_inputs(names=HEADLINE_SPIES, per_block=False,
+                             module=None):
+    """Wrap each named kernel wrapper where the encoder calls it (or
+    ``module``, for every kernel but ``frame_pack``), so one run of the
+    path records the arguments of every kernel's first launch (positional
+    arguments, keywords folded in by name order), under its name, or with
+    ``per_block`` under ``(name, block size)``; returns ``(captured,
+    restore)``."""
     import flacx_torch.encoder as encoder
     import flacx_torch.ops.framepack as framepack
+    if module is not None:
+        encoder = module
 
     captured = {}
     originals = []
@@ -367,11 +382,14 @@ def autocorr_library_ms(torch, x, window, max_lag: int) -> float | None:
 
 
 def hold(torch, name: str, wrapper: str, args: tuple,
-         replaces: str | None = None) -> dict:
+         replaces: str | None = None, add_s: float | None = None) -> dict:
     """The JSON row of the kernel behind ``wrapper`` (a key of
     :func:`launch_counts`), held against its plain version on ``args``,
     the arguments the path gave its first launch; ``replaces`` names the
-    TPU kernels where the path, not the shapes, decides them."""
+    TPU kernels where the path, not the shapes, decides them.  ``add_s``:
+    one f64 add's latency on the card, for ``reference_lpc``'s bound."""
+    if wrapper in CONF_KERNELS:
+        return conformance_row(torch, name, wrapper, args, add_s)
     from flacx_torch.kernels import analysis as k_an
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import lpc_allorder as k_la
@@ -489,8 +507,11 @@ def hold(torch, name: str, wrapper: str, args: tuple,
 def launch_counts() -> dict:
     from flacx_torch.kernels import (analysis, bit_unpack, crc16_rows,
                                      frame_pack, lpc_allorder, lpc_residual,
-                                     reconstruct, rice_stats)
+                                     reconstruct, reference_analysis,
+                                     rice_stats)
     return {
+        "reference_lpc": reference_analysis.reference_lpc,
+        "abs_residual_sums": reference_analysis.abs_residual_sums,
         "bit_unpack": bit_unpack.bit_unpack,
         "reconstruct": reconstruct.reconstruct,
         "crc16_rows": crc16_rows.crc16_rows,
@@ -1094,7 +1115,246 @@ def decode_phase(torch, streams: dict) -> list[dict]:
                   + f"; card {card}", flush=True)
             del captured
         rows += group
+        if label == "headline":
+            rows.append(serial_row(torch, data, pcm))
     return rows
+
+
+#: conformance mode's own kernels (the JAX package runs their work as XLA,
+#: flacx/conformance.py), and every kernel its encode launches
+CONF_KERNELS = ("reference_lpc", "abs_residual_sums")
+CONF_PATH = CONF_KERNELS + ("lpc_residual_zz", "frame_pack")
+#: the conformance phase's frames compared with the plain CPU path, and
+#: frames drawn from the seed compared with the oracle encoder
+CONF_CPU, CONF_ORACLE = 256, 16
+
+
+def bits_equal(torch, a, b):
+    """Every output equal, f64 ones as bits."""
+    for u, v in zip(a, b):
+        if u.dtype == torch.float64:
+            u, v = u.view(torch.int64), v.view(torch.int64)
+        if not torch.equal(u, v):
+            diff = (u.long() - v.long()).abs().max().item()
+            raise AssertionError(f"kernel differs from plain: {diff}")
+    return 0
+
+
+def conformance_row(torch, name: str, wrapper: str, args: tuple,
+                    add_s: float) -> dict:
+    """The JSON row of a ``reference_analysis`` kernel held against its
+    plain version on ``args``, exactly (f64 as bits).  ``reference_lpc``'s
+    bound: the larger of its bytes and its chain of n - 1 dependent f64
+    adds at ``add_s`` each (every row's chain runs in parallel); counted as
+    operations at one add a latency.  ``abs_residual_sums``': a
+    multiply-add a nonzero tap of each predictor and sample (the fixed
+    predictors have 10 a sample), two operations, and four a residual
+    (shift, subtract, abs, add), at the scalar rate (the wide MAC's
+    products as limb products at the int8 tensor rate)."""
+    from flacx_torch.kernels import lpc_allorder as k_la
+    from flacx_torch.kernels import lpc_residual as k_lr
+    from flacx_torch.kernels import reference_analysis as k_ra
+
+    csrc = "flacx_torch/kernels/csrc/reference_analysis.cu"
+    x = args[0]
+    n = x.shape[-1]
+    if wrapper == "reference_lpc":
+        return kernel_row(
+            torch, name, "reference_lpc_kernel", k_ra.reference_lpc,
+            k_ra.reference_lpc_plain, args, bits_equal,
+            [(n - 1, 1.0 / add_s)], csrc, "flacx/conformance.py:325-329 "
+            "(XLA: window, ordered_autocorr, levinson_reference, "
+            "quantize_reference)")
+    qcoefs, eff_bps, taps_max = args[1], args[3], args[4]
+    wide = k_lr.mac_width(eff_bps, max(taps_max, 15)) == "wide"
+    rows = x[..., 0].numel()
+    residuals = x.numel() * (5 + qcoefs.shape[-1])
+    if wide:
+        limbs = k_la.sample_limbs(eff_bps)
+        work = [(limb_ops(n, qcoefs.flatten(-2), limbs)
+                 + 2 * 10 * rows * n * limbs, INT8_TENSOR_OPS_PER_S),
+                (8 * residuals, SCALAR_OPS_PER_S)]
+    else:
+        taps = 10 * rows + int((qcoefs != 0).sum())
+        work = [(2 * taps * n + 4 * residuals, SCALAR_OPS_PER_S)]
+    return kernel_row(
+        torch, name, f"abs_residual_sums_kernel<{str(wide).lower()}>",
+        k_ra.abs_residual_sums, k_ra.abs_residual_sums_plain, args, exact,
+        work, csrc, "flacx/conformance.py:307-319 + :330-333 (XLA)")
+
+
+def crafted_overflow() -> list:
+    """Batches that take the overflow route: ``(label, config, [F, 2, n]
+    blocks, overflow flags)``.  A spike in low noise (a Rice quotient past
+    32 bits under the reference's mean-estimate parameter) at block 256,
+    LPC order 4, partition order 0; full-scale white noise at the headline
+    block (about 16.5 bits a sample, past the verbatim-sized buffer)."""
+    from flacx_torch.encoder import EncoderConfig
+
+    rng = np.random.default_rng(SEED + 3)
+    spikes = rng.integers(-2, 3, size=(4, 2, 256)).astype(np.int16)
+    spikes[0, 0, 40] = 30000
+    spikes[2, 1, 100] = -30000
+    loud = rng.integers(-32768, 32768, size=(2, 2, N)).astype(np.int16)
+    loud[1] = blocks_of(synth_pcm(rng, N), N)[0]
+    return [("spike", EncoderConfig(block_size=256, max_lpc_order=4,
+                                    partition_orders=(0,), conformance=True),
+             spikes, [True, False, True, False]),
+            ("buffer", EncoderConfig(block_size=N, max_lpc_order=12,
+                                     conformance=True), loud, [True, False])]
+
+
+def conformance_phase(torch, pcm: np.ndarray) -> list[dict]:
+    """Conformance mode (``EncoderConfig(conformance=True)``: the reference
+    encoder's choices) on the headline batch through ``BatchEncoder``: its
+    kernels held against their plain versions (rows
+    ``<kernel>@conformance``), the counted run, every CRC-16, the first
+    :data:`CONF_CPU` frames byte-equal to the plain CPU path,
+    :data:`CONF_ORACLE` sampled frames equal to the oracle encoder's and
+    decoded bit-exactly, the crafted overflow batches on the oracle route,
+    the timing, and the CD rip through ``pipeline.encode_to_file``."""
+    import io
+
+    import flacx_torch.conformance as conf
+    from flacx_torch import pipeline
+    from flacx_torch.crc import crc16
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+    from flacx_torch.kernels.reference_analysis import dadd_latency_probe
+    from flacx_torch.oracle.decoder import read_frame
+
+    dev = torch.device("cuda")
+    cfg = EncoderConfig(block_size=N, max_lpc_order=12, conformance=True)
+    enc = BatchEncoder(cfg, batch_frames=B)
+    planar = blocks_of(pcm, N)
+
+    def oracle(blocks, first, c):
+        return [pipeline._oracle_frame(blk.T, first + i, c.bps,
+                                       c.block_size, c.max_lpc_order,
+                                       c.qlp_precision, c.partition_orders)
+                for i, blk in enumerate(blocks)]
+
+    captured, restore = capture_main_path_inputs(CONF_PATH, module=conf)
+    try:
+        enc.encode_frames(planar, 0)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    steps = 1 << 22
+    add_s = median_ms(torch, lambda: dadd_latency_probe(steps, dev),
+                      5) / steps / 1e3
+    print(f"conformance: f64 add latency {add_s * 1e9:.4f} ns (one thread, "
+          f"a chain of {steps} adds)", flush=True)
+    rows = [hold(torch, f"{name}@conformance", name, captured[name],
+                 replaces=("flacx/kernels/bitpack_tile.py:316 + "
+                           "bitpack_tile.py:268 (via flacx/conformance.py"
+                           ":412 pack_symbols_words)"), add_s=add_s)
+            for name in CONF_PATH]
+    rows[2]["replaces"] = ("flacx/conformance.py:366-369 + :380 (XLA: the "
+                           "chosen residual's zigzag)")
+    time_rows(torch, rows)
+    del captured
+
+    t0 = time.perf_counter()
+    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                 CONF_PATH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for row in rows:
+        row["launches"] = counts[row["name"].split("@")[0]]
+        row["batches"] = 1
+    overflow = int(enc.encode_batch_device(planar, 0)["overflow"].sum())
+    if len(frames) != B:
+        raise AssertionError(f"conformance: {len(frames)} frames")
+    for i, fr in enumerate(frames):
+        if crc16(fr[:-2]) != int.from_bytes(fr[-2:], "big"):
+            raise AssertionError(f"conformance frame {i}: CRC-16 mismatch")
+    cpu = BatchEncoder(cfg, batch_frames=CONF_CPU, device="cpu") \
+        .encode_frames(planar[:CONF_CPU], 0)
+    differ = [i for i in range(CONF_CPU) if cpu[i] != frames[i]]
+    if differ:
+        raise AssertionError(f"conformance: frames {differ[:8]} differ from "
+                             "the plain CPU path")
+    pick = sorted(np.random.default_rng(SEED).choice(
+        B, CONF_ORACLE, replace=False).tolist())
+    for i in pick:
+        if frames[i] != oracle(planar[i:i + 1], i, cfg)[0]:
+            raise AssertionError(f"conformance frame {i}: not the oracle's")
+        if not np.array_equal(np.asarray(read_frame(frames[i], 16)[1]),
+                              planar[i]):
+            raise AssertionError(f"conformance frame {i}: not bit-exact")
+    total = sum(map(len, frames))
+    print(f"conformance e2e frames {B}: launches {counts}; all CRC-16 "
+          f"valid; the first {CONF_CPU} byte-equal to the plain CPU path; "
+          f"{CONF_ORACLE} sampled frames the oracle's and bit-exact; "
+          f"{overflow} overflow frames; {total} bytes, ratio "
+          f"{total / planar.nbytes:.4f}", flush=True)
+
+    for label, ocfg, blocks, want in crafted_overflow():
+        oenc = BatchEncoder(ocfg, batch_frames=len(blocks))
+        got = oenc.encode_batch_device(blocks, 0)["overflow"].tolist()
+        if got != want:
+            raise AssertionError(f"conformance {label}: overflow {got}")
+        if oenc.encode_frames(blocks, 0) != oracle(blocks, 0, ocfg):
+            raise AssertionError(f"conformance {label}: not the oracle's")
+        print(f"conformance overflow batch {label}: flags {got}, frames the "
+              "oracle's", flush=True)
+
+    e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
+    print(f"conformance e2e encode_frames: {e2e_ms:.3f} ms per {B}-frame "
+          f"batch, {B * N * 2 / (e2e_ms / 1e3):.1f} samples/s; device "
+          f"pipeline {dev_ms:.3f} ms per batch; first call "
+          f"{first_s * 1e3:.1f} ms", flush=True)
+
+    cd, rate, bps = file_inputs()["cd"]
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    stats, counts = counted_run(lambda: pipeline.encode_to_file(
+        buf, cd, sample_rate=rate, bps=bps, channels=2, block_size=N,
+        max_lpc_order=12, qlp_precision=5,
+        partition_orders=(0, 1, 2, 3, 4, 5), batch_frames=FILE_BATCH,
+        conformance=True), CONF_PATH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    info = check_flac(buf.getvalue(), cd, rate, bps, (N,), "conformance file")
+    print(f"conformance file ({CD_SECONDS} s of 16-bit stereo, "
+          f"encode_to_file(conformance=True)): wall {wall:.3f} s, "
+          f"{CD_SECONDS / wall:.1f}x realtime; {info['frames']} frames, "
+          f"{stats['bytes_out']} bytes; launches {counts}; STREAMINFO, MD5, "
+          "every CRC right, sampled frames bit-exact", flush=True)
+    return rows
+
+
+def serial_row(torch, data: bytes, pcm: np.ndarray) -> dict:
+    """``reconstruct``'s serial route (``decoder._decode_rows``, the host
+    parse: int64, the IIR over every tap) on the headline stream forced
+    down it (every batch's device decode refused, so each takes the host
+    route): bit-exact, its launches counted, the kernel held against its
+    plain version on the first batch's arguments."""
+    import flacx_torch.decoder as dec
+
+    bf = DECODE_BATCHES["headline"][0]
+    device_rows = dec._decode_rows_device
+    dec._decode_rows_device = lambda *args, **kwargs: None
+    captured, _, restore = spy_decoder(("reconstruct",))
+    stats = {}
+    try:
+        (_, got), counts = counted_run(
+            lambda: dec.decode_array(data, batch_frames=bf, device="cuda",
+                                     stats=stats), ("reconstruct",))
+    finally:
+        restore()
+        dec._decode_rows_device = device_rows
+    batches = -(-(len(pcm) // N) // bf)
+    if not np.array_equal(got, pcm) or stats.get("host") != batches:
+        raise AssertionError(f"serial decode: routes {stats}")
+    row = hold(torch, "reconstruct_serial@headline", "reconstruct",
+               captured["reconstruct"])
+    row["launches"], row["batches"] = counts["reconstruct"], batches
+    time_rows(torch, [row])
+    print(f"decode headline forced down _decode_rows: {batches} batches, "
+          f"bit-exact, routes {stats}, launches {counts}", flush=True)
+    return row
+
 
 
 #: the file phase: a CD rip (3 minutes of 16-bit stereo at 44.1 kHz) and a
@@ -1524,6 +1784,9 @@ def main() -> int:
     pcm = synth_pcm(np.random.default_rng(SEED), N * B)
     streams = {}
     rows = headline_phase(torch, pcm, streams)
+    t0 = time.perf_counter()
+    rows += conformance_phase(torch, pcm)
+    print(f"conformance phase: {time.perf_counter() - t0:.1f} s", flush=True)
     rows += best_phase(torch, pcm)
     wasted_phase(pcm)
     streams["fixed"] = (fixed_frames(pcm), pcm, 44100, 16, N)

@@ -20,8 +20,9 @@ kernel is replaced by its plain PyTorch version.
 
 Both order searches, f32 and f64 analysis, any number of windows and
 wasted bits are covered up to 24-bit samples, every partition order and
-frame size.  Other configurations raise ``NotImplementedError`` naming the
-slice that will bring them.
+frame size, and conformance mode (the reference encoder's choices,
+:mod:`flacx_torch.conformance`).  Wider samples raise
+``NotImplementedError`` naming the slice that will bring them.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from flacx_torch.conformance import encode_batch_conformance
 from flacx_torch.device import resolve_device
 from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
                                 Channels)
@@ -179,15 +181,10 @@ def config_from_flacx(d: dict) -> EncoderConfig:
 def check_supported(cfg: EncoderConfig) -> None:
     """Raise ``NotImplementedError`` for configurations this slice of the
     port does not encode (the same on every device)."""
-    later = []
-    if cfg.conformance:
-        later.append("conformance=True (conformance slice)")
     if cfg.bps > 24:
-        later.append(f"bps {cfg.bps} > 24, whose residuals need an int64 "
-                     "working type (bps 25..32 slice)")
-    if later:
-        raise NotImplementedError("flacx_torch does not encode yet: "
-                                  + "; ".join(later))
+        raise NotImplementedError(
+            f"flacx_torch does not encode yet: bps {cfg.bps} > 24, whose "
+            "residuals need an int64 working type (bps 25..32 slice)")
 
 
 def analysis_dtype(cfg: EncoderConfig) -> torch.dtype:
@@ -238,9 +235,13 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     analysis float type, on ``pcm``'s device; None builds them from
     ``cfg``.
     Returns a dict of device tensors: ``bytes`` (u8), ``length``, ``kind``,
-    ``channel_code`` and ``subframe_bits``.
+    ``channel_code`` and ``subframe_bits``; under ``cfg.conformance`` the
+    reference's choices (:func:`flacx_torch.conformance.
+    encode_batch_conformance`, which adds ``overflow``).
     """
     check_supported(cfg)
+    if cfg.conformance:
+        return encode_batch_conformance(cfg, pcm, first_index)
     n = cfg.block_size
     b = pcm.shape[0]
     p = cfg.max_lpc_order
@@ -507,12 +508,27 @@ class BatchEncoder:
         return _encode_batch(self.config, arr.to(self.device), first_index,
                              self._windows)
 
-    def _drain(self, result: dict, valid: int,
-               stats: dict | None) -> list[bytes]:
-        """Fetch one finished batch and cut its rows into frame bytes."""
+    def _drain(self, result: dict, valid: int, stats: dict | None,
+               pcm: np.ndarray | None = None, index0: int = 0,
+               ) -> list[bytes]:
+        """Fetch one finished batch and cut its rows into frame bytes.
+        Under conformance, ``pcm`` is the batch's ``[B, C, N]`` PCM and
+        ``index0`` its first frame's index: each overflow frame (one the
+        packer cannot take) is the oracle encoder's instead, the same
+        bytes by the oracle's own parity."""
         lens = result["length"][:valid].cpu().numpy()
         width = int(lens.max()) if valid else 0
         data = result["bytes"][:valid, :width].cpu().numpy()
+        frames = [data[i, :lens[i]].tobytes() for i in range(valid)]
+        if pcm is not None:
+            from flacx_torch.pipeline import _oracle_frame
+            cfg = self.config
+            over = result["overflow"][:valid].cpu().numpy()
+            for i in np.nonzero(over)[0]:
+                frames[i] = _oracle_frame(
+                    pcm[i].T, index0 + int(i), cfg.bps, cfg.block_size,
+                    cfg.max_lpc_order, cfg.qlp_precision,
+                    cfg.partition_orders)
         if stats is not None:
             kinds = result["kind"][:valid].cpu().numpy().ravel()
             kh = stats.setdefault("subframe_kinds", {})
@@ -525,8 +541,8 @@ class BatchEncoder:
                                ("M/S", 10)):
                 mh[name] = mh.get(name, 0) + int((codes == code).sum())
             stats["frame_bytes"] = stats.get("frame_bytes", 0) \
-                + int(lens.sum())
-        return [data[i, :lens[i]].tobytes() for i in range(valid)]
+                + sum(map(len, frames))
+        return frames
 
     def encode_frame_stream(self, batches, first_index: int = 0,
                             stats: dict | None = None):
@@ -536,12 +552,14 @@ class BatchEncoder:
         full-block groups (short groups are zero-padded to the batch
         shape; pad frames are encoded and discarded).  At most two batches
         are in flight: batch ``i+1`` is dispatched to the device before
-        batch ``i`` is fetched and cut into frames.
+        batch ``i`` is fetched and cut into frames.  Under conformance each
+        batch's PCM is kept until its drain, for the overflow frames.
 
         ``stats``, if given, accumulates subframe-kind and stereo-mode
         histograms plus total frame bytes.
         """
         bsz = self.batch_frames
+        keep_pcm = self.config.conformance
         index = first_index
         pending = []
         for chunk in batches:
@@ -553,12 +571,14 @@ class BatchEncoder:
                 chunk = np.concatenate(
                     [chunk, np.zeros((bsz - valid, *chunk.shape[1:]),
                                      chunk.dtype)], axis=0)
-            pending.append((self.encode_batch_device(chunk, index), valid))
+            pending.append((self.encode_batch_device(chunk, index), valid,
+                            np.asarray(chunk) if keep_pcm else None, index))
             index += valid
             if len(pending) == 2:
-                yield from self._drain(*pending.pop(0), stats)
-        for result, valid in pending:
-            yield from self._drain(result, valid, stats)
+                result, valid, pcm, index0 = pending.pop(0)
+                yield from self._drain(result, valid, stats, pcm, index0)
+        for result, valid, pcm, index0 in pending:
+            yield from self._drain(result, valid, stats, pcm, index0)
 
     def encode_frames(self, pcm: np.ndarray, first_index: int,
                       stats: dict | None = None) -> list[bytes]:

@@ -218,7 +218,6 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
     best_bits = best_bits - torch.where(best_bits >= FALLBACK_BIAS,
                                         FALLBACK_BIAS, 0)
 
-    psize_min = n >> max_po
     # finest-grid (segment) copies, walking orders coarse → fine and
     # overriding where that order won
     k_seg = torch.zeros((*lead, 1), dtype=torch.int8, device=dev)
@@ -241,12 +240,25 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
         k_seg = k_seg.repeat_interleave(f, dim=-1)
         esc_seg = esc_seg.repeat_interleave(f, dim=-1)
 
-    # every other parameter field derives from the segment grid
+    return plan_from_segments(best_bits, best_po, best_width, k_seg,
+                              esc_seg, order, n)
+
+
+def plan_from_segments(bits: torch.Tensor, porder: torch.Tensor,
+                       width: torch.Tensor, k_seg: torch.Tensor,
+                       esc_seg: torch.Tensor, order: torch.Tensor,
+                       n: int) -> RicePlan:
+    """The :class:`RicePlan` of a chosen partition order from its
+    finest-grid parameters ``k_seg`` / ``esc_seg`` ``[..., nseg]`` (each
+    finest segment's parameter and escape flag under the chosen order):
+    every other field derives from them."""
+    dev = k_seg.device
+    psize_min = n // k_seg.shape[-1]
     k_sample = k_seg.repeat_interleave(psize_min, dim=-1)
     esc_sample = esc_seg.repeat_interleave(psize_min, dim=-1)
     i = torch.arange(n, dtype=torch.int32, device=dev)
-    psz_best = torch.bitwise_right_shift(torch.full_like(best_po, n),
-                                         best_po)[..., None]
+    psz_best = torch.bitwise_right_shift(torch.full_like(porder, n),
+                                         porder)[..., None]
     order_c = order[..., None]
     param_start = ((i % psz_best == 0) & (i > 0)) | (i == order_c)
 
@@ -261,7 +273,7 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
         start_param = (((pos_p % psz_best) == 0) & (pos_p > 0)) \
             | (pos_p == order_c)
 
-    return RicePlan(bits=best_bits, porder=best_po, width=best_width,
+    return RicePlan(bits=bits, porder=porder, width=width,
                     k_sample=k_sample, param_start=param_start,
                     esc_sample=esc_sample, k_param=k_param,
                     start_param=start_param, esc_param=esc_param,

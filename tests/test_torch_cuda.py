@@ -1,4 +1,4 @@
-"""The eight CUDA kernels against their plain versions, on the card.
+"""The nine CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA card and skip without one (the CUDA
 kernels have no CPU mode).  Run them on the card with
@@ -30,7 +30,13 @@ on both routes and working types, the all-fixed route at block 16384 on
 1-8 channels with integrations that wrap and on blocks of 1, 3 and 4097
 samples at every integration count, a chunk-route batch of the
 headline's size (288 blocks), and CRC-16 rows of every length mod 4 up to
-295,168 bytes with one corrupted.  Integers must match
+295,168 bytes with one corrupted; conformance mode's
+``reference_lpc`` (f64 compared as bits) at orders 1-32, precisions 5 and
+15, over rows of zeros, constants and full-scale alternation, its
+``floor_log2`` on the values just under powers of two, and
+``abs_residual_sums`` on both MACs, every tap bucket and one to three
+segments a row, and the conformance encode against the plain CPU path.
+Integers must match
 exactly; the
 autocorrelation within rtol 1e-9 (f64 sums of the same f32 products in
 another order; 1e-12 for f64 products) or that factor of autoc[0] near
@@ -984,3 +990,113 @@ def test_crc16_rows_kernel(dev, w):
         assert k_crc.crc16_rows.launches == before + 1
         assert torch.equal(ok, ref_ok) and torch.equal(all_ok, ref_all)
         assert ok.tolist() == [int(i != bad) for i in range(f)]
+
+
+def lpc_rows(seed: int, r: int, n: int) -> np.ndarray:
+    """``rows`` with a constant row (the third) as well."""
+    x = rows(seed, r, n)
+    x[2] = 4321
+    return x
+
+
+def f64_bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.int64), b.cpu().view(torch.int64))
+
+
+@pytest.mark.parametrize("precision", [5, 15])
+@pytest.mark.parametrize("n,p", [(64, 1), (1152, 8), (4608, 12), (1025, 32),
+                                 (4608, 32), (2049, 12)])
+def test_reference_lpc_kernel(dev, n, p, precision):
+    """Against the plain version on the CPU, exactly (f64 as bits): rows of
+    zeros (invalid), constant rows, full-scale alternation, tones in
+    noise; tiles of 1024 samples and their ragged ends."""
+    from flacx_torch.conformance import reference_window
+    from flacx_torch.kernels import reference_analysis as k_ra
+    x = torch.from_numpy(lpc_rows(11 + p, 10, n))
+    w = reference_window(n, torch.device("cpu"))
+    before = k_ra.reference_lpc.launches
+    got = k_ra.reference_lpc(x.to(dev), w.to(dev), p, precision)
+    want = k_ra.reference_lpc_plain(x, w, p, precision)
+    torch.cuda.synchronize()
+    assert k_ra.reference_lpc.launches == before + 1
+    assert f64_bits_equal(got[0], want[0])
+    for g, r in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), r)
+    assert not want[3][0].any()
+
+
+def test_floor_log2_kernel(dev):
+    """The kernel's floor_log2 on the edge values of the CPU tests (exact
+    powers, one ulp either side, random values) and the integer means of
+    the Rice plan, against the plain version."""
+    import math
+
+    from flacx_torch.conformance import floor_log2
+    from flacx_torch.kernels import reference_analysis as k_ra
+    vals = []
+    for k in range(-40, 41):
+        p2 = math.ldexp(1.0, k)
+        vals += [p2, np.nextafter(p2, 0.0), np.nextafter(p2, np.inf)]
+        vals += [p2 * (1 - j * 2.0 ** -53) for j in range(2, 8)]
+    rng = np.random.default_rng(5)
+    vals += list(np.exp(rng.uniform(-60, 60, 2000)))
+    vals += list(rng.integers(1, 1 << 40, 500) / rng.integers(1, 5000, 500))
+    x = torch.tensor(vals, dtype=torch.float64)
+    got = k_ra.floor_log2_device(x.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), floor_log2(x))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1152, 2305, 4608])
+@pytest.mark.parametrize("p,precision,eff_bps", [
+    (0, 5, 17), (1, 5, 17), (8, 15, 17), (12, 5, 17), (12, 5, 31),
+    (32, 15, 17), (32, 5, 24)])
+def test_abs_residual_sums_kernel(dev, n, p, precision, eff_bps):
+    """Against the plain version, exactly, on both MACs (int32 under the
+    static bound, int64 past it), every tap bucket, rows of one to three
+    segments, rows shorter than the orders; coefficients at the clip
+    bounds of the precision, shifts 0..15."""
+    from flacx_torch.kernels import reference_analysis as k_ra
+    rng = np.random.default_rng(n * 100 + p)
+    x = torch.from_numpy(lpc_rows(n + p, 9, n))
+    lim = 1 << (precision - 1)
+    q = rng.integers(-lim, lim, (9, p, p)).astype(np.int32)
+    q[:, :, :1] = np.where(rng.random((9, p, 1)) < 0.3, -lim, q[:, :, :1])
+    q *= np.tril(np.ones((p, p), np.int32))
+    qc = torch.from_numpy(q)
+    qs = torch.from_numpy(rng.integers(0, 16, (9, p)).astype(np.int32))
+    taps_max = max(p, 1) << (precision - 1)
+    before = k_ra.abs_residual_sums.launches
+    got = k_ra.abs_residual_sums(x.to(dev), qc.to(dev), qs.to(dev), eff_bps,
+                                 taps_max)
+    want = k_ra.abs_residual_sums_plain(x, qc, qs, eff_bps, taps_max)
+    torch.cuda.synchronize()
+    assert k_ra.abs_residual_sums.launches == before + 1
+    for g, r in zip(got, want):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("n,p,kinds", [
+    (1152, 12, ("tonal", "noise", "impulse", "silence")),
+    (4608, 8, ("tonal", "noise"))])
+def test_conformance_encode_on_card(dev, n, p, kinds):
+    """``BatchEncoder(conformance=True)`` on the card writes the plain CPU
+    path's frames byte for byte, overflow frames (the oracle's) included,
+    and launches both kernels once a batch."""
+    from conftest import make_pcm
+
+    from flacx_torch.encoder import BatchEncoder
+    from flacx_torch.kernels import reference_analysis as k_ra
+    pcm = np.concatenate([make_pcm(np.random.default_rng(k), n, 2, 16, kind)
+                          for k, kind in enumerate(kinds)])
+    blocks = np.ascontiguousarray(pcm.reshape(-1, n, 2).transpose(0, 2, 1))
+    cfg = EncoderConfig(block_size=n, max_lpc_order=p, conformance=True)
+    before = (k_ra.reference_lpc.launches, k_ra.abs_residual_sums.launches)
+    card = BatchEncoder(cfg, batch_frames=len(blocks)).encode_frames(
+        blocks, 9)
+    assert (k_ra.reference_lpc.launches,
+            k_ra.abs_residual_sums.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    cpu = BatchEncoder(cfg, batch_frames=len(blocks), device="cpu") \
+        .encode_frames(blocks, 9)
+    assert card == cpu

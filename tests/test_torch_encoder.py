@@ -131,8 +131,10 @@ def test_batch_encoder_streams_in_small_batches(batch):
 
 
 @pytest.mark.parametrize("changes,later", [
-    ({"conformance": True, "order_search": "exact"}, "conformance"),
-    ({"conformance": True}, "conformance"),
+    # encodes since the conformance slice (the reference's choices)
+    ({"conformance": True, "order_search": "exact"}, None),
+    ({"conformance": True}, None),
+    ({"bps": 25}, "bps 25"),
     ({"bps": 24}, None),
     ({"bps": 24, "windows": ("tukey(0.5)", "hann")}, None),
     ({"partition_orders": tuple(range(10))}, None),
@@ -144,9 +146,10 @@ def test_batch_encoder_streams_in_small_batches(batch):
                   "order_search": "exact"}, None, id="changes7-int32 MAC"),
 ])
 def test_unsupported_configs_raise(changes, later):
-    """What the port refuses raises on every device; what the hi-res and
-    file slices brought (24-bit, 512 partitions, order 32 at precision 15
-    in either order search) encodes a frame that decodes bit-exactly."""
+    """What the port refuses (samples past 24 bits) raises on every
+    device; what the hi-res, file and conformance slices brought (24-bit,
+    512 partitions, order 32 at precision 15 in either order search,
+    conformance mode) encodes a frame that decodes bit-exactly."""
     cfg = EncoderConfig(block_size=N, **changes)
     if later is not None:
         with pytest.raises(NotImplementedError, match=later):

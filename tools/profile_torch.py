@@ -2,7 +2,8 @@
 """Where the time of a flacx_torch encode or decode goes, on one card.
 
     python3 tools/profile_torch.py [--config headline|best|hires|hires6|
-                                    decode] [--block N] [--batches 3]
+                                    conformance|decode] [--block N]
+                                   [--batches 3]
                                    [--batch-frames 256]
                                    [--out profile_out]
 
@@ -15,7 +16,9 @@ search over the windows Tukey(0.5), Hann and flattop, f64 analysis) at
 ``--block`` 4608, 2304 or 1152; ``--config hires`` is the hi-res encode
 (24-bit, block 16384, LPC order 32, partition orders 0..15) of 128
 stereo frames, ``--config hires6`` of 64 5.1 frames, the PCM of
-``chip_smoke.py``'s hi-res phases.  ``--config decode`` decodes the
+``chip_smoke.py``'s hi-res phases, ``--config conformance`` the headline
+batch with ``conformance=True`` (the reference encoder's choices).
+``--config decode`` decodes the
 headline batch's 1024 frames, encoded on the card into a FLAC stream,
 with ``decoder.decode_array`` at ``--batch-frames`` frames a batch (the
 CLI's default 256), ``--batches`` times; its numbers are a decode batch's
@@ -55,6 +58,18 @@ STAGES = {
     "rice plan": ("flacx_torch.ops.rice", "exact_plan"),
     "frame header": ("flacx_torch.encoder", "frame_header_symbols"),
     "emit symbols + frame_pack": ("flacx_torch.encoder", "pack_frames"),
+    "frame_pack kernel": ("flacx_torch.ops.framepack", "frame_pack"),
+}
+#: the conformance encode's stages, as STAGES
+CONF_STAGES = {
+    "reference_lpc kernel": ("flacx_torch.conformance", "reference_lpc"),
+    "abs_residual_sums kernel": ("flacx_torch.conformance",
+                                 "abs_residual_sums"),
+    "lpc_residual zz kernel": ("flacx_torch.conformance", "lpc_residual_zz"),
+    "reference rice plan": ("flacx_torch.conformance",
+                            "reference_rice_plan"),
+    "frame header": ("flacx_torch.conformance", "frame_header_symbols"),
+    "emit symbols + frame_pack": ("flacx_torch.conformance", "pack_frames"),
     "frame_pack kernel": ("flacx_torch.ops.framepack", "frame_pack"),
 }
 #: stages that run inside another stage (not added to the staged total)
@@ -103,7 +118,7 @@ def self_device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=("headline", "best", "hires",
-                                         "hires6", "decode"),
+                                         "hires6", "conformance", "decode"),
                     default="headline")
     ap.add_argument("--batch-frames", type=int, default=256,
                     help="frames a decode batch of --config decode")
@@ -124,7 +139,8 @@ def main() -> int:
 
     if args.config == "decode":
         return profile_decode(torch, args)
-    annotate_stages(torch, STAGES)
+    annotate_stages(torch, CONF_STAGES if args.config == "conformance"
+                    else STAGES)
     if args.config.startswith("hires"):
         n = HIRES_N
         channels, frames, _ = HIRES[args.config]
@@ -133,7 +149,8 @@ def main() -> int:
     else:
         n, frames = (args.block if args.config == "best" else 4608), B
         cfg = (best_config(n) if args.config == "best"
-               else EncoderConfig(block_size=n, max_lpc_order=12))
+               else EncoderConfig(block_size=n, max_lpc_order=12,
+                                  conformance=args.config == "conformance"))
         planar = blocks_of(synth_pcm(np.random.default_rng(SEED), n * B), n)
     enc = BatchEncoder(cfg, batch_frames=frames)
     planar = torch.from_numpy(planar).cuda()
