@@ -26,6 +26,14 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   128-frame stereo batch (``hires``) and one 64-frame 5.1 batch
   (``hires6``, frames of up to 295,168 bytes, past a block's shared
   memory);
+* the 25- to 32-bit encode (``hibps``): the headline settings on 1024
+  frames of 28-bit stereo (a 29-bit side channel) and of 32-bit stereo
+  (independent), every kernel on its int64 route (``analysis``'s int64
+  differences, ``lpc_residual``'s wide MAC with int64 zz, ``rice_stats``
+  on int64 zz, ``frame_pack`` reading int64 zz), the first 256 frames
+  against the plain CPU path; ``--best``'s block-4608 pass at 32 bits on
+  256 frames (``lpc_allorder``, four sample limbs); the CLI at the
+  defaults on a 30 s 32-bit stereo WAV, decoded back;
 * the file encode (``file``): ``python -m flacx_torch encode`` in process
   on WAV files written from the seed, a 3-minute 16-bit CD rip at the
   defaults and at ``-b 1152`` (the ``lpc_residual`` res mode) and a 60 s
@@ -36,7 +44,9 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   encoded on the card and with ``--device cpu``;
 * the decode (``decode``): ``decoder.decode_array`` on the card over the
   streams of the headline batch (at 256 and 1024 frames a batch), of the
-  same PCM with fixed predictors only, and of the two hi-res batches, each
+  same PCM with fixed predictors only, of the two hi-res batches and of
+  the two 25- to 32-bit batches (``reconstruct``'s int64 chunk route at
+  28 bits, its serial route at 32), each
   bit-exact against its PCM with every batch on the device route (the
   ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels), then the
   headline stream forced down the host parse (``reconstruct``'s serial
@@ -55,7 +65,8 @@ arguments of their first launch in each stream's decode (rows
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
-path, ``<kernel>@conformance`` in conformance mode,
+path, ``<kernel>@conformance`` in conformance mode, ``<mode>@hibps28``
+/ ``<mode>@hibps32`` and ``lpc_allorder@best32`` past 24 bits,
 ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires`` /
 ``<mode>@hires6`` on the hi-res ones;
 ``launches`` counts the launches of that path's counted encode, which
@@ -89,9 +100,11 @@ SCALAR_OPS_PER_S = 67e12
 F64_OPS_PER_S = 64 * 132 * 1.98e9
 
 
-def synth_pcm(rng: np.random.Generator, frames: int) -> np.ndarray:
+def synth_pcm(rng: np.random.Generator, frames: int,
+              bps: int = 16) -> np.ndarray:
     """Two-tone stereo test signal with a little noise, ``[frames, 2]``
-    int32 (the headline benchmark's input)."""
+    int32 (the headline benchmark's input); past 16 bits the same signal
+    at that width (its noise reaching the low bits)."""
     t = np.arange(frames, dtype=np.float64)
     left = (0.6 * np.sin(2 * np.pi * 220.0 / 44100.0 * t)
             + 0.25 * np.sin(2 * np.pi * 587.3 / 44100.0 * t + 0.3)
@@ -99,8 +112,9 @@ def synth_pcm(rng: np.random.Generator, frames: int) -> np.ndarray:
     right = (0.55 * np.sin(2 * np.pi * 329.6 / 44100.0 * t + 0.1)
              + 0.2 * np.sin(2 * np.pi * 880.0 / 44100.0 * t)
              + 0.02 * rng.standard_normal(frames))
-    pcm = np.stack([left, right], axis=1)
-    return np.clip(pcm * 22000, -32768, 32767).astype(np.int32)
+    pcm = np.stack([left, right], axis=1) * (22000 * 2.0 ** (bps - 16))
+    top = 1 << (bps - 1)
+    return np.clip(pcm, -top, top - 1).astype(np.int64).astype(np.int32)
 
 
 def card_line() -> str:
@@ -330,16 +344,17 @@ def frame_pack_bytes(args) -> int:
     """The bytes ``frame_pack`` must move on this run's data: each symbol's
     value and length at 4 B each (the values are int64 of which the kernel
     reads the low 32 bits); per channel the samples its subframe codes
-    (``x`` of a verbatim one; ``zz`` past the warm-up, ``kesc`` and the
-    partition parameters of a fixed or LPC one; none of a constant one)
-    and its kind, order and width; the frame bytes and lengths written
-    once."""
+    (``x`` of a verbatim one; ``zz`` past the warm-up at its own width,
+    ``kesc`` and the partition parameters of a fixed or LPC one; none of a
+    constant one) and its kind, order and width; the frame bytes and
+    lengths written once."""
     from flacx_torch.ops.emit import KIND_FIXED, KIND_VERBATIM
     hdr_v, sh_v, pv, zz, kesc, kind, order = (args[i] for i in
                                               (0, 2, 4, 6, 8, 9, 10))
     max_frame_bytes = args[13]
     n = zz.shape[-1]
-    coded = 4 * ((n - order.long()) + kesc.shape[-1] + 2 * pv.shape[-1])
+    coded = (zz.element_size() * (n - order.long())
+             + 4 * (kesc.shape[-1] + 2 * pv.shape[-1]))
     per_channel = ((kind == KIND_VERBATIM) * 4 * n
                    + (kind >= KIND_FIXED) * coded)
     return (8 * (hdr_v.numel() + sh_v.numel()) + int(per_channel.sum())
@@ -401,6 +416,9 @@ def hold(torch, name: str, wrapper: str, args: tuple,
     csrc = "flacx_torch/kernels/csrc/"
     if wrapper == "analysis":
         x, window, max_lag = args[:3]
+        # the integer work of the fixed-order sums, doubled where the
+        # differences are int64 (each a pair of 32-bit operations)
+        fixed_ops = 26 * (2 if k_an.diff_width(args[3]) == "int64" else 1)
         n = x.shape[-1]
         rows = x[..., 0].numel()
         # every window's work: W windows of [W, n], one of [n]
@@ -429,7 +447,7 @@ def hold(torch, name: str, wrapper: str, args: tuple,
             torch, name, "analysis_kernel", k_an.analysis,
             k_an.analysis_plain, args, autoc_close(1e-9, 1e-12),
             [(adds, F64_OPS_PER_S),
-             (adds + windowed + rows * n * 26, SCALAR_OPS_PER_S)],
+             (adds + windowed + rows * n * fixed_ops, SCALAR_OPS_PER_S)],
             csrc + "analysis.cu",
             "flacx/kernels/autocorr_tile.py:124 + "
             "flacx/kernels/zzsum_tile.py:115")
@@ -438,6 +456,8 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         mode = ("lpc_residual_stats", "lpc_residual_zz",
                 "lpc_residual_res").index(wrapper)
         xs, taps = args[0], args[1]
+        # the zz mode's int64 output is the kernel's mode 3
+        zz64 = mode == 1 and len(args) > 6 and args[6] == torch.int64
         wide = k_lr.mac_width(args[4], args[5]) == "wide"
         # one multiply-add per sample and nonzero tap of its row: the int32
         # MAC's as two scalar operations and six a sample besides; the wide
@@ -451,7 +471,8 @@ def hold(torch, name: str, wrapper: str, args: tuple,
                   + xs.numel() * 6, SCALAR_OPS_PER_S)])
         return kernel_row(
             torch, name,
-            f"lpc_residual_kernel<{mode}, {str(wide).lower()}>",
+            f"lpc_residual_kernel<{3 if zz64 else mode}, "
+            f"{str(wide).lower()}>",
             getattr(k_lr, wrapper), getattr(k_lr, wrapper + "_plain"), args,
             exact, work, csrc + "lpc_residual.cu",
             "flacx/kernels/lpcres_tile.py:" + ("392", "225" if xs.shape[-1]
@@ -901,11 +922,157 @@ def hires_phase(torch, label: str, streams: dict) -> list[dict]:
     return rows
 
 
+#: the 25- to 32-bit batches at the headline settings: label -> width
+#: (28-bit stereo has a 29-bit side channel; 32-bit stereo is independent)
+HIBPS = {"hibps28": 28, "hibps32": 32}
+HIBPS_NAMES = {"analysis": "analysis",
+               "lpc_residual_stats": "lpc_residual_stats_wide",
+               "lpc_residual_zz": "lpc_residual_zz_wide_i64",
+               "rice_stats": "rice_stats_i64", "frame_pack": "frame_pack"}
+#: frames of the 32-bit --best batch, of each batch held against the plain
+#: CPU path, and decoded by the oracle; seconds of the 32-bit WAV
+HIBPS_BEST, HIBPS_CPU, HIBPS_DECODE, HIBPS_WAV_SECONDS = 256, 256, 16, 30
+
+
+def hibps_phase(torch, streams: dict) -> list[dict]:
+    """The 25- to 32-bit encode at the headline settings (block 4608, LPC
+    order 12, precision 5, partition orders 0..5, one Tukey(0.5) window)
+    on 1024 frames of 28-bit and of 32-bit stereo (the working type
+    int64): every kernel of the path on its int64 route held against its
+    plain version on the arguments of its first launch, the counted run,
+    every CRC-16, the first 256 frames against the plain CPU path, 16
+    decoded by the oracle, the timing; the frames go into ``streams`` for
+    the decode phase.  Then ``--best``'s block-4608 pass at 32 bits on 256
+    frames (``lpc_allorder``, four sample limbs, int64 combine), and the
+    CLI at the defaults on a 30 s 32-bit stereo WAV, decoded back."""
+    import tempfile
+    from pathlib import Path
+
+    from flacx_torch import cli
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+    from flacx_torch.kernels import analysis as k_an
+    from flacx_torch.kernels import lpc_allorder as k_la
+    from flacx_torch.kernels import lpc_residual as k_lr
+    from flacx_torch.wavio import write_wav
+
+    rows = []
+    pcm32 = None
+    for label, bps in HIBPS.items():
+        cfg = EncoderConfig(block_size=N, max_lpc_order=12, bps=bps)
+        enc = BatchEncoder(cfg, batch_frames=B)
+        pcm = synth_pcm(np.random.default_rng(SEED + bps), N * B, bps)
+        planar = blocks_of(pcm, N, np.int32)
+        captured, restore = capture_main_path_inputs()
+        try:
+            enc.encode_batch_device(planar, 0)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        # every kernel on its int64 route
+        assert cfg.work_dtype == torch.int64
+        assert k_an.diff_width(captured["analysis"][3]) == "int64"
+        for wrapper in ("lpc_residual_stats", "lpc_residual_zz"):
+            args = captured[wrapper]
+            assert k_lr.mac_width(args[4], args[5]) == "wide", wrapper
+        assert captured["lpc_residual_zz"][6] == torch.int64
+        assert captured["rice_stats"][0].dtype == torch.int64
+        assert captured["frame_pack"][6].dtype == torch.int64
+        group = []
+        for wrapper in HEADLINE_SPIES:
+            group.append(hold(torch, f"{HIBPS_NAMES[wrapper]}@{label}",
+                              wrapper, captured[wrapper]))
+            group[-1]["wrapper"] = wrapper
+        time_rows(torch, group)
+        del captured
+
+        t0 = time.perf_counter()
+        frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                     HEADLINE_SPIES)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for row in group:
+            row["launches"], row["batches"] = counts[row.pop("wrapper")], 1
+        rows += group
+        _, differ = check_frames(frames, planar, cfg, label,
+                                 decode=HIBPS_DECODE, cpu=HIBPS_CPU)
+        streams[label] = (frames, pcm, 44100, bps, N)
+        total = sum(map(len, frames))
+        e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
+        print(f"{label}: {B} frames of {bps}-bit stereo ("
+              f"{'side channel' if cfg.use_stereo_modes else 'independent'}"
+              f", eff_bps {cfg.eff_bps}); launches {counts}; all CRC-16 "
+              f"valid, {HIBPS_DECODE} decoded bit-exact; cpu plain path "
+              f"byte-equal on {HIBPS_CPU - differ}/{HIBPS_CPU} ({differ} "
+              f"chose other coefficients); {total} bytes, ratio "
+              f"{total / (planar.size * 4):.4f} of 32-bit containers; "
+              f"encode_frames {e2e_ms:.3f} ms per {B}-frame batch "
+              f"({B * N * 2 / (e2e_ms / 1e3):.1f} samples/s), device "
+              f"pipeline {dev_ms:.3f} ms per batch; first call "
+              f"{first_s * 1e3:.1f} ms", flush=True)
+        if bps == 32:
+            pcm32 = pcm
+        del enc, planar, frames
+
+    # encode --best's block-4608 pass at 32 bits
+    cfg = EncoderConfig(block_size=N, bps=32, order_search="exact",
+                        windows=BEST_WINDOWS)
+    enc = BatchEncoder(cfg, batch_frames=HIBPS_BEST)
+    planar = blocks_of(pcm32[:HIBPS_BEST * N], N, np.int32)
+    captured, restore = capture_main_path_inputs(("lpc_allorder",))
+    try:
+        enc.encode_batch_device(planar, 0)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    args = captured.pop("lpc_allorder")
+    assert k_la.sample_limbs(args[3]) == 4
+    assert k_lr.mac_width(args[3], args[4]) == "wide"
+    row = hold(torch, "lpc_allorder@best32", "lpc_allorder", args)
+    time_rows(torch, [row])
+    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                 BEST_PATH)
+    torch.cuda.synchronize()
+    row["launches"], row["batches"] = counts["lpc_allorder"], 1
+    rows.append(row)
+    _, differ = check_frames(frames, planar, cfg, "best32",
+                             decode=HIBPS_DECODE)
+    e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
+    print(f"best32: {HIBPS_BEST} frames of 32-bit stereo, exact search, "
+          f"three windows; launches {counts}; all CRC-16 valid, "
+          f"{HIBPS_DECODE} decoded bit-exact; cpu plain path byte-equal on "
+          f"{16 - differ}/16; encode_frames {e2e_ms:.3f} ms per batch, "
+          f"device pipeline {dev_ms:.3f} ms", flush=True)
+    del enc, planar, frames
+
+    # the CLI at the defaults on a 32-bit stereo WAV, decoded back
+    rate = 44100
+    pcm = synth_pcm(np.random.default_rng(SEED + 33),
+                    rate * HIBPS_WAV_SECONDS, 32)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, out = Path(tmp, "in32.wav"), Path(tmp, "out32.flac")
+        write_wav(wav, rate, 32, pcm)
+        t0 = time.perf_counter()
+        _, counts = counted_run(lambda: cli.main(
+            ["encode", str(wav), str(out)]), HEADLINE_SPIES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        data = out.read_bytes()
+        info = check_flac(data, pcm, rate, 32, (N,), "hibps file")
+        print(f"hibps file ({HIBPS_WAV_SECONDS} s of 32-bit stereo, the "
+              f"CLI's defaults): wall {wall:.3f} s, "
+              f"{HIBPS_WAV_SECONDS / wall:.1f}x realtime; {info['frames']} "
+              f"frames, {len(data)} bytes; launches {counts}; STREAMINFO, "
+              f"MD5, every CRC right, {FILE_DECODE} sampled frames and the "
+              "last decoded bit-exact", flush=True)
+        decode_file(cli, out, pcm, "hibps", HIBPS_WAV_SECONDS, tmp)
+    return rows
+
+
 DECODE_PATH = ("bit_unpack", "reconstruct", "crc16_rows")
 #: the decode phase's streams and the batch sizes each is decoded at (the
 #: CLI's default 256 first: its counted run gives the rows' launches)
 DECODE_BATCHES = {"headline": (256, 1024), "fixed": (256,), "hires": (256,),
-                  "hires6": (256,)}
+                  "hires6": (256,), "hibps28": (256,), "hibps32": (256,)}
 
 
 def decode_row(torch, name: str, wrapper: str, args: tuple) -> dict:
@@ -1792,6 +1959,9 @@ def main() -> int:
     streams["fixed"] = (fixed_frames(pcm), pcm, 44100, 16, N)
     for label in HIRES:
         rows += hires_phase(torch, label, streams)
+    t0 = time.perf_counter()
+    rows += hibps_phase(torch, streams)
+    print(f"hibps phase: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows += decode_phase(torch, streams)
     print(f"decode phase: {time.perf_counter() - t0:.1f} s", flush=True)

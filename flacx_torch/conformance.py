@@ -260,9 +260,11 @@ def encode_batch_conformance(cfg, pcm: torch.Tensor,
     verbatim stand-ins here, which the host replaces with the oracle's
     frames.  A frame overflows where a reference Rice code passes 32 bits
     (the reference's unary quotients are unbounded), where the frame would
-    pass ``max_frame_bytes`` (the reference never writes verbatim), or
-    where a chosen residual reaches 2^30 (its zigzag would not fit the
-    packer's int32; such a frame has a code past 32 bits anyway).
+    pass ``max_frame_bytes`` (the reference never writes verbatim), or,
+    up to 24-bit samples, where a chosen residual reaches 2^30 (its zigzag
+    would not fit the int32 working type; such a frame has a code past 32
+    bits anyway).  Past 24 bits the zigzag residual is int64
+    (``cfg.work_dtype``), exact on every frame.
     """
     n = cfg.block_size
     b = pcm.shape[0]
@@ -327,10 +329,12 @@ def encode_batch_conformance(cfg, pcm: torch.Tensor,
     # ---- the chosen residual's zigzag (zero at i < order) and its plan;
     # exact in int32 on every frame that does not overflow: each code
     # (zz >> k) + 1 + k <= 32 with k <= 30 gives zz < 2^31
-    zz = lpc_residual_zz(x, taps, shift, order, cfg.bps, taps_max)
+    zz = lpc_residual_zz(x, taps, shift, order, cfg.bps, taps_max,
+                         cfg.work_dtype)
     coded = kind >= emit.KIND_FIXED
     wraps = torch.zeros(b, dtype=torch.bool, device=dev)
-    if not residual_fits_int32(cfg.bps, taps_max):
+    if zz.dtype == torch.int32 and not residual_fits_int32(cfg.bps,
+                                                           taps_max):
         _, maxabs = lpc_residual_stats(x, taps, shift, order, cfg.bps,
                                        taps_max)
         wraps = (coded & (maxabs >= (1 << 30))).any(-1)

@@ -19,10 +19,11 @@ yielding complete, CRC'd FLAC frames as byte rows.  On the CPU every
 kernel is replaced by its plain PyTorch version.
 
 Both order searches, f32 and f64 analysis, any number of windows and
-wasted bits are covered up to 24-bit samples, every partition order and
-frame size, and conformance mode (the reference encoder's choices,
-:mod:`flacx_torch.conformance`).  Wider samples raise
-``NotImplementedError`` naming the slice that will bring them.
+wasted bits are covered at every sample width up to 32 bits, every
+partition order and frame size, and conformance mode (the reference
+encoder's choices, :mod:`flacx_torch.conformance`).  Past 24 bits the
+zigzag residual is int64 (``EncoderConfig.work_dtype``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -160,6 +161,13 @@ class EncoderConfig:
         return max(1, self.max_lpc_order << max(self.qlp_precision - 1, 0))
 
     @property
+    def work_dtype(self) -> torch.dtype:
+        """The zigzag residual's type: int32 up to 24-bit samples (fixed
+        residuals are under 2^(eff_bps+3), and LPC residuals past 2^30
+        make their candidate ineligible), int64 past them."""
+        return torch.int32 if self.bps <= 24 else torch.int64
+
+    @property
     def max_frame_bytes(self) -> int:
         side = 1 if self.use_stereo_modes else 0
         bits = (16 * 8 + self.channels * (8 + self.block_size *
@@ -176,15 +184,6 @@ def config_from_flacx(d: dict) -> EncoderConfig:
         raise ValueError(f"unknown encoder config fields: {unknown}")
     return EncoderConfig(**{k: tuple(v) if isinstance(v, list) else v
                             for k, v in d.items()})
-
-
-def check_supported(cfg: EncoderConfig) -> None:
-    """Raise ``NotImplementedError`` for configurations this slice of the
-    port does not encode (the same on every device)."""
-    if cfg.bps > 24:
-        raise NotImplementedError(
-            f"flacx_torch does not encode yet: bps {cfg.bps} > 24, whose "
-            "residuals need an int64 working type (bps 25..32 slice)")
 
 
 def analysis_dtype(cfg: EncoderConfig) -> torch.dtype:
@@ -239,7 +238,6 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     reference's choices (:func:`flacx_torch.conformance.
     encode_batch_conformance`, which adds ``overflow``).
     """
-    check_supported(cfg)
     if cfg.conformance:
         return encode_batch_conformance(cfg, pcm, first_index)
     n = cfg.block_size
@@ -295,7 +293,8 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     # every window's autocorrelation in one call (each window's as flacx
     # computes it alone), and the fixed-order sums, which do not depend on
     # the window; without LPC only the sums are used
-    autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p)
+    autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p,
+                                eff_bps=cfg.eff_bps)
     for wi, name in enumerate(cfg.windows if p else ()):
         autoc = autoc_w[:, :, wi]
         taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
@@ -353,10 +352,11 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
         lo64 = lpc_order.long()
         lpc_bits = (rice.estimate_bits(lzz_exact, n - lo64, kmax)
                     + 8 + lo64 * bps_v + 9 + lo64 * prec)
-        # residuals that cannot survive the int32 working dtype make the
-        # LPC candidate ineligible (verbatim/fixed win instead)
-        lpc_ok = (best.valid.gather(-1, lo0[..., None])[..., 0]
-                  & (lpc_maxabs < (1 << 30)))
+        lpc_ok = best.valid.gather(-1, lo0[..., None])[..., 0]
+        if cfg.work_dtype == torch.int32:
+            # residuals that cannot survive the int32 working dtype make
+            # the LPC candidate ineligible (verbatim/fixed win instead)
+            lpc_ok = lpc_ok & (lpc_maxabs < (1 << 30))
         lpc_bits = torch.where(lpc_ok, lpc_bits, _INF)
         pred_is_lpc = lpc_bits < fixed_bits
     else:
@@ -387,7 +387,8 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
         """The zigzag residual of the chosen taps (``taps_max`` bounds
         their Σ|taps|)."""
         return lpc_residual_zz(x, taps.contiguous(), shift.contiguous(),
-                               order.contiguous(), cfg.eff_bps, taps_max)
+                               order.contiguous(), cfg.eff_bps, taps_max,
+                               cfg.work_dtype)
 
     def rice_plan(zz, order):
         """The exact Rice plan of a zigzag residual."""
@@ -486,7 +487,6 @@ class BatchEncoder:
 
     def __init__(self, config: EncoderConfig, batch_frames: int = 32,
                  device: str | torch.device = "cuda"):
-        check_supported(config)
         self.config = config
         self.batch_frames = batch_frames
         self.device = resolve_device(device)
@@ -515,20 +515,26 @@ class BatchEncoder:
         Under conformance, ``pcm`` is the batch's ``[B, C, N]`` PCM and
         ``index0`` its first frame's index: each overflow frame (one the
         packer cannot take) is the oracle encoder's instead, the same
-        bytes by the oracle's own parity."""
+        bytes by the oracle's own parity, and a batch that holds one adds
+        only its frame bytes to ``stats``, as the JAX package's does."""
         lens = result["length"][:valid].cpu().numpy()
         width = int(lens.max()) if valid else 0
         data = result["bytes"][:valid, :width].cpu().numpy()
         frames = [data[i, :lens[i]].tobytes() for i in range(valid)]
-        if pcm is not None:
+        over = (result["overflow"][:valid].cpu().numpy() if pcm is not None
+                else np.zeros(0, bool))
+        if over.any():
             from flacx_torch.pipeline import _oracle_frame
             cfg = self.config
-            over = result["overflow"][:valid].cpu().numpy()
             for i in np.nonzero(over)[0]:
                 frames[i] = _oracle_frame(
                     pcm[i].T, index0 + int(i), cfg.bps, cfg.block_size,
                     cfg.max_lpc_order, cfg.qlp_precision,
                     cfg.partition_orders)
+            if stats is not None:
+                stats["frame_bytes"] = stats.get("frame_bytes", 0) \
+                    + sum(map(len, frames))
+            return frames
         if stats is not None:
             kinds = result["kind"][:valid].cpu().numpy().ravel()
             kh = stats.setdefault("subframe_kinds", {})

@@ -13,19 +13,23 @@
 //   w[i]        = T(x[i]) * window[i]                         (T, rounded)
 //   autoc[l]    = sum_{i=l}^{n-2} (double) T(w[i-l] * w[i])    (f64 sums)
 //   fsums[o]    = sum_{i>=o} zigzag(D^o x[i])                  (int64 sums)
-// with D^o the o-th difference in int32.  Products use __fmul_rn /
-// __dmul_rn and the f64 sums __dadd_rn, so no multiply is fused into an
-// add and each product rounds exactly as the plain version's; the sums
-// differ from it only in summation order, which is fixed: a batch gives
-// the same bits on every run.  With fixed = 0 the fixed-order sums are
-// skipped.
+// with D^o the o-th difference in int32, or in int64 on the wide route.
+// Products use __fmul_rn / __dmul_rn and the f64 sums __dadd_rn, so no
+// multiply is fused into an add and each product rounds exactly as the
+// plain version's; the sums differ from it only in summation order, which
+// is fixed: a batch gives the same bits on every run.  With fixed = 0 the
+// fixed-order sums are skipped.
 //
-// Widths: the kernel serves every path up to 24-bit samples, where the
-// stereo side channel is 25 bits (eff_bps 25).  T(x) is exact there: an
-// eff_bps-bit sample has |x| <= 2^(eff_bps-1) = 2^24, which f32 holds
-// exactly.  The int32 differences are exact up to eff_bps 26: |D^o x| <=
-// 2^o * 2^(eff_bps-1) <= 2^(eff_bps+3) for o <= 4, so |D^4 x| <= 2^29 and
-// its zigzag fits int32; the sums are int64.
+// Widths: every int32 sample, eff_bps up to 32.  T(x) is exact while
+// |x| <= 2^24 (f32's integers); past that __int2float_rn rounds to
+// nearest even, as Tensor.float() and the JAX package's astype round, so
+// the f32 windowed values are the plain version's there too (f64 holds
+// every int32).  The differences have two routes, chosen by the wrapper
+// from eff_bps (analysis.diff_width): int32, exact up to eff_bps 26, since
+// |D^o x| <= 2^o * 2^(eff_bps-1) = 2^(eff_bps+3) at o = 4, so |D^4 x| <=
+// 2^29 and its zigzag fits int32; and int64 ("wide") past that, where
+// |D^4 x| <= 2^35 at eff_bps 32 and its zigzag, 2^36, sums over any row
+// in int64.  The sums are int64 on both.
 //
 // Bound on the card: operations.  f64: per sample and window, the window
 // multiply and max_lag + 1 products and adds on the f64 pipe (64 per clock
@@ -89,7 +93,7 @@ struct Args {
   long long* fsums;  // [rows, 5] (fixed only)
   double* scratch;   // [rows, nseg, nwin * (L+1) + 5] partials (nseg > 1)
   int* tickets;      // [rows] zeros (nseg > 1)
-  int n, max_lag, nwin, fixed, seg, nseg;
+  int n, max_lag, nwin, fixed, wide, seg, nseg;
 };
 
 // Sums v[0..V) over the warp, V a power of two <= 32, by halving: at
@@ -128,28 +132,50 @@ constexpr int smem_bytes(int seg) {
   return (MAXLAG + 4 + seg) * (int)(sizeof(T) + sizeof(int32_t));
 }
 
-// A run's fixed-order sums from d0 = x[i0 - 4 .. i0 + RUN - 1]: the o-th
-// differences by the chain d_o[i] = d_{o-1}[i] - d_{o-1}[i-1], their
-// zigzags (< 2^30) added as unsigned.  EDGE: the run meets the row's start
-// (no D^o x[i] for i < o) or its end.
-template <bool EDGE>
-__device__ __forceinline__ void fixed_sums(const int32_t (&d0)[RUN + 4],
-                                           int i0, int n, long long (&fs)[5]) {
+// zigzag(v) of a difference as the sums add it: unsigned, < 2^30 on the
+// int32 route, < 2^37 on the int64 one.
+__device__ __forceinline__ long long zigzag_sum(int32_t v) {
+  return (uint32_t)flacx::zigzag32(v);
+}
+__device__ __forceinline__ long long zigzag_sum(long long v) {
+  return (long long)(((unsigned long long)v << 1) ^
+                     (unsigned long long)(v >> 63));
+}
+
+// A run's fixed-order sums from x[i0 - 4 .. i0 + RUN - 1] (xs from c - 4):
+// the o-th differences in D (int32, or int64 on the wide route) by the
+// chain d_o[i] = d_{o-1}[i] - d_{o-1}[i-1], their zigzags added.  EDGE:
+// the run meets the row's start (no D^o x[i] for i < o) or its end.
+template <typename D, bool EDGE>
+__device__ __forceinline__ void fixed_sums(const int32_t* xs, int i0, int n,
+                                           long long (&fs)[5]) {
+  D d0[RUN + 4];
+#pragma unroll
+  for (int k = 0; k < RUN + 4; ++k) d0[k] = xs[k];
 #pragma unroll
   for (int r = 0; r < RUN; ++r) {
     const int i = i0 + r;
     if (EDGE && i >= n) break;
-    const int32_t a0 = d0[r + 4], a1 = d0[r + 3], a2 = d0[r + 2];
-    const int32_t a3 = d0[r + 1], a4 = d0[r];
-    const int32_t d10 = a0 - a1, d11 = a1 - a2, d12 = a2 - a3, d13 = a3 - a4;
-    const int32_t d20 = d10 - d11, d21 = d11 - d12, d22 = d12 - d13;
-    const int32_t d30 = d20 - d21, d31 = d21 - d22;
-    const int32_t d40 = d30 - d31;
-    const int32_t d[5] = {a0, d10, d20, d30, d40};
+    const D a0 = d0[r + 4], a1 = d0[r + 3], a2 = d0[r + 2];
+    const D a3 = d0[r + 1], a4 = d0[r];
+    const D d10 = a0 - a1, d11 = a1 - a2, d12 = a2 - a3, d13 = a3 - a4;
+    const D d20 = d10 - d11, d21 = d11 - d12, d22 = d12 - d13;
+    const D d30 = d20 - d21, d31 = d21 - d22;
+    const D d40 = d30 - d31;
+    const D d[5] = {a0, d10, d20, d30, d40};
 #pragma unroll
     for (int o = 0; o < 5; ++o)
-      if (!EDGE || i >= o) fs[o] += (uint32_t)flacx::zigzag32(d[o]);
+      if (!EDGE || i >= o) fs[o] += zigzag_sum(d[o]);
   }
+}
+
+template <typename D>
+__device__ __forceinline__ void fixed_run(const int32_t* xs, int i0, int n,
+                                          long long (&fs)[5]) {
+  if (i0 >= 4 && i0 + RUN <= n)
+    fixed_sums<D, false>(xs, i0, n, fs);
+  else
+    fixed_sums<D, true>(xs, i0, n, fs);
 }
 
 template <typename T, int MAXLAG>
@@ -214,14 +240,11 @@ __global__ void __launch_bounds__(THREADS) analysis_kernel(Args a) {
             top = __dadd_rn(top, (double)mul_rn(v, own[r]));
       }
       if (fixed) {
-        int32_t d0[RUN + 4];  // x[c - 4 .. c + RUN - 1]
-#pragma unroll
-        for (int k = 0; k < RUN + 4; ++k) d0[k] = xs[c - 4 + k];
         const int i0 = s0 + (c - HALO);  // the run's row position
-        if (i0 >= 4 && i0 + RUN <= n)
-          fixed_sums<false>(d0, i0, n, fs);
+        if (a.wide)
+          fixed_run<long long>(xs + c - 4, i0, n, fs);
         else
-          fixed_sums<true>(d0, i0, n, fs);
+          fixed_run<int32_t>(xs + c - 4, i0, n, fs);
       }
     }
 
@@ -312,7 +335,7 @@ void launch(const Args& a, int rows, cudaStream_t stream) {
 
 // x int32 [rows, n], win [nwin, n] (f32, or f64 when f64 != 0) -> autoc
 // f64 [rows, nwin, max_lag+1] and, when fixed != 0, fsums int64 [rows,
-// 5].  seg:
+// 5], the differences in int64 when wide != 0.  seg:
 // the samples of a segment (a multiple of 1152, at most 4608); past one
 // segment a row, scratch holds rows x nseg x (nwin * (max_lag+1) + 5)
 // doubles and tickets rows zeros.  Returns the CUDA error code of the
@@ -320,16 +343,16 @@ void launch(const Args& a, int rows, cudaStream_t stream) {
 FLACX_API int flacx_analysis(const int32_t* x, const void* win,
                              double* autoc, long long* fsums, double* scratch,
                              int* tickets, int rows, int n, int max_lag,
-                             int nwin, int f64, int fixed, int seg,
-                             cudaStream_t stream) {
+                             int nwin, int f64, int fixed, int wide,
+                             int seg, cudaStream_t stream) {
   if (rows <= 0 || n < 2 || max_lag < 0 || max_lag > 32 || nwin < 1 ||
       (fixed && fsums == nullptr) || seg <= 0 || seg % PASS ||
       seg > SEG_LIMIT)
     return (int)cudaErrorInvalidValue;
   const int nseg = (n + seg - 1) / seg;
   if (nseg > 1 && (!scratch || !tickets)) return (int)cudaErrorInvalidValue;
-  const Args a{x,    win,  autoc, fsums, scratch, tickets,
-               n,    max_lag, nwin, fixed, seg,     nseg};
+  const Args a{x,       win,  autoc, fsums, scratch, tickets, n,
+               max_lag, nwin, fixed, wide,  seg,     nseg};
   if (f64)
     launch<double>(a, rows, stream);
   else

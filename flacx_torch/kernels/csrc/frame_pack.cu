@@ -28,6 +28,14 @@
 // bytes [nbytes, nbytes+2) carry the CRC-16 (poly 0x18005, init 0) of the
 // first nbytes; every later byte is zero; length = nbytes + 2.
 //
+// zz is int32, or int64 past 24-bit samples, of which the kernel reads the
+// low 32 bits (zz64): the value itself wherever a symbol is coded from it.
+// A Rice parameter k <= 30 codes only partitions whose max zz has (zz >> k)
+// + k + 1 <= 32, so zz < (32 - k) * 2^k <= 2^31, and an escape only those
+// with bitlen(max zz) <= 31 (ops.rice.exact_plan, the rice_stats kernel's
+// int64 route); a subframe with any other partition is not coded but
+// verbatim, from x.  So every zz the kernel codes is below 2^31.
+//
 // Bound on the card: bytes.  zz and x are read once (4 B/sample each) and
 // the output row written once: at the headline 1024 frames x 2 channels x
 // 4608 samples that is 75.5 MB in + 20.2 MB out, 28.6 us at 3.35 TB/s
@@ -94,7 +102,9 @@ struct Args {
   const int32_t* sh_l;
   const long long* pv;     // [B, C, P] partition-parameter symbols
   const int32_t* pl;
-  const int32_t* zz;       // [B, C, N] zigzag residuals, 0 at i < order
+  const uint32_t* zz;      // [B, C, N] zigzag residuals, 0 at i < order,
+                           // int32, or int64 read as its low words
+  int zz_shift;            // log2 of zz's words a value: 0 or 1
   const int32_t* x;        // [B, C, N] samples
   const int32_t* kesc;     // [B, C, NSEG] k | escape << 7 per segment
   const int32_t* meta;     // [B, C, 3] kind, order, bps
@@ -221,7 +231,7 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_symbols(Args a) {
         aux[j] = __ldg(a.pl + bc * a.p + param);
       } else {
         const int i = seg * a.psize + pos - 1;
-        raw[j] = (uint32_t)__ldg(a.zz + bc * a.n + i);
+        raw[j] = __ldg(a.zz + ((bc * a.n + i) << a.zz_shift));
         aux[j] = __ldg(a.kesc + bc * a.nseg + seg);
         type = kind >= KIND_FIXED && i >= ord ? CODED : 0;
         if (kind == KIND_VERBATIM) {
@@ -274,7 +284,7 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_symbols(Args a) {
               aux[j] = m.z;
             } else if (m.x >= KIND_FIXED && i >= m.y) {
               type = CODED;
-              raw[j] = (uint32_t)__ldg(a.zz + bc * a.n + i);
+              raw[j] = __ldg(a.zz + ((bc * a.n + i) << a.zz_shift));
               aux[j] = __ldg(a.kesc + bc * a.nseg + w.seg);
             }
           }
@@ -491,7 +501,8 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_place(Args a) {
 
 }  // namespace
 
-// Symbol arrays as in Args; rows = B frames, c channels, h frame-header
+// Symbol arrays as in Args (zz int64 when zz64 != 0); rows = B frames, c
+// channels, h frame-header
 // slots, sh subframe-header slots, p = n_extra + n / psize param slots,
 // mfb = max_frame_bytes (a multiple of 4); mult[s] = s + n_extra for every
 // segment s >= mult_head; crc_consts holds tab (Args) and then x^(8k) mod
@@ -501,14 +512,14 @@ __global__ void __launch_bounds__(THREADS) frame_pack_kernel_place(Args a) {
 FLACX_API int flacx_frame_pack(const long long* hdr_v, const int32_t* hdr_l,
                                const long long* sh_v, const int32_t* sh_l,
                                const long long* pv, const int32_t* pl,
-                               const int32_t* zz, const int32_t* x,
+                               const void* zz, const int32_t* x,
                                const int32_t* kesc, const int32_t* meta,
                                const int32_t* extra, const int32_t* mult,
                                const int32_t* crc_consts, uint8_t* out,
                                int32_t* length, int32_t* work, int rows,
                                int c, int h, int sh, int p, int n, int psize,
                                int mfb, int n_extra, int mult_head,
-                               int chunk_slots, int group,
+                               int chunk_slots, int group, int zz64,
                                cudaStream_t stream) {
   if (rows <= 0 || rows > 65535 || c < 1 || h < 0 || sh < 0 || psize < 1 ||
       n % psize != 0 || n_extra < 0 || p != n_extra + n / psize ||
@@ -524,7 +535,9 @@ FLACX_API int flacx_frame_pack(const long long* hdr_v, const int32_t* hdr_l,
   uint32_t* counts = scratch + (size_t)rows * nch * CHUNK;
   uint32_t* parts = counts + (size_t)rows * nch;
   int32_t* tickets = reinterpret_cast<int32_t*>(parts + (size_t)rows * nch);
-  Args a{hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
+  Args a{hdr_v, hdr_l, sh_v, sh_l, pv, pl,
+         static_cast<const uint32_t*>(zz), zz64 ? 1 : 0, x, kesc, meta,
+         extra, mult,
          out, length, reinterpret_cast<const uint32_t*>(crc_consts),
          reinterpret_cast<const uint32_t*>(crc_consts) + 4 * 256, scratch,
          counts, parts, tickets,

@@ -6,7 +6,8 @@
 //          search's exact statistics);
 //   zz:    zigzag((int32) res) written out as int32 (the chosen
 //          predictor's residual, ready for the Rice search and the
-//          emitter);
+//          emitter), or zigzag(res) as int64 with no narrowing (past
+//          24-bit samples, the encoder's int64 working type);
 //   res:   res written out as int32 together with the stats (the
 //          estimate search where the JAX package's tiled emit does not
 //          apply: the chosen LPC residual is kept, not recomputed).
@@ -29,17 +30,23 @@
 //          arithmetic as the plain version).  This is stronger than the
 //          TPU's split MAC, which only flags the lanes it cannot hold, and
 //          equals the JAX package's int64 XLA route (flacx/ops/lpc.py:
-//          381-392).  zz narrows res to int32 before the zigzag, as the
-//          encoder's int32 working type does: exact on every lane it
-//          emits (a chosen LPC residual has max |res| < 2^30; a fixed one
-//          has sum |taps| <= 15, so |res| <= 2^(eff_bps+3)).
+//          381-392).  The bound holds at its extremes: eff_bps 32 (|x| <=
+//          2^31) and precision 15 give |x| * sum |taps| <= 2^31 * 2^19 =
+//          2^50 < 2^53, so each product and partial sum is an exact f64
+//          integer, |res| <= 2^31 + 2^50 and its zigzag < 2^52.  The int32
+//          zz narrows res to int32 before the zigzag, as the encoder's
+//          int32 working type does: exact on every lane it emits (a chosen
+//          LPC residual has max |res| < 2^30; a fixed one has sum |taps|
+//          <= 15, so |res| <= 2^(eff_bps+3)).  The int64 zz keeps res
+//          whole: zigzag(res) of the int64 MAC, exact on every lane.
 // The res mode runs the int32 MAC only: the JAX package reaches
 // lpc_residual_tiles only under its int32 gate (flacx/ops/lpc.py:342-343),
 // which the wrapper asserts.
 //
 // Bound on the card.  int32 MAC: bytes.  stats reads 4 B/sample (75.5 MB
 // at the headline 1024 x 4 x 4608: 22.5 us at 3.35 TB/s); zz and res read
-// and write 4 B/sample each (zz at 1024 x 2 x 4608: 75.5 MB, 22.5 us; res
+// and write 4 B/sample each (zz at 1024 x 2 x 4608: 75.5 MB, 22.5 us; the
+// int64 zz writes 8: 113 MB, 34 us; res
 // at 256 x 4 x 1152, the file encode at block 1152: 9.4 MB, 2.8 us); the
 // at most 12 multiply-adds per sample at order 12 are below that.  Wide
 // MAC: operations, one DFMA (64 per clock per SM, 132 SMs, 1.98 GHz) per
@@ -63,6 +70,8 @@
 // several segments adds its blocks' sums by integer atomics (64-bit add,
 // max) into outputs the wrapper zeroes: the same bits in any order.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -78,34 +87,40 @@ constexpr int SEG_MAX = 2 * PASS;
 constexpr int HALO = 32;
 constexpr int STAGE = (HALO + SEG_MAX + THREADS - 1) / THREADS;  // loads
 constexpr long long INT32_MAX_LL = 2147483647LL;
-// output modes (template argument of the kernel)
-constexpr int STATS = 0, ZZ = 1, RES = 2;
+// output modes (template argument of the kernel); ZZ64 is zz as int64
+constexpr int STATS = 0, ZZ = 1, RES = 2, ZZ64 = 3;
 
 struct Args {
   const int32_t* x;      // [rows, n]
   const int32_t* taps;   // [rows, ntaps]
   const int32_t* shift;  // [rows]
   const int32_t* order;  // [rows]
-  int32_t* out;          // [rows, n]: zz (ZZ) or res (RES)
+  void* out;             // [rows, n]: zz (ZZ int32, ZZ64 int64), res (RES)
   long long* lzz;        // [rows] (STATS, RES)
   int32_t* maxabs;       // [rows] (STATS, RES)
   int n, ntaps, seg, nseg;
 };
 
+// The type of a mode's output.
+template <int MODE>
+using Out = typename std::conditional<MODE == ZZ64, long long, int32_t>::type;
+
 // A block's segment in shared memory: the samples with the halo, as f64
-// too for the wide MAC, and the zz or res output, to leave coalesced.
+// too for the wide MAC, and the zz or res output, to leave coalesced (at
+// most 46.5 KB: the wide MAC's int64 zz).
 template <int MODE, bool WIDE>
 struct Shared {
   double xd[WIDE ? HALO + SEG_MAX : 1];
   int32_t xs[HALO + SEG_MAX];
-  int32_t outs[MODE != STATS ? SEG_MAX : 1];
+  Out<MODE> outs[MODE != STATS ? SEG_MAX : 1];
 };
 
 // The views of it the MAC bodies take, and the row's taps [HALO].
+template <int MODE>
 struct Seg {
   double* xd;
   int32_t* xs;
-  int32_t* outs;
+  Out<MODE>* outs;
   const int32_t* tp;
 };
 
@@ -116,13 +131,15 @@ __device__ __forceinline__ long long exact_ll(double d) {
 }
 
 // The residual of a sample in the MAC width of WIDE (the product sum `acc`
-// exact), narrowed to int32, its zigzag as the stats sum adds it, and its
-// |res| as the stats max takes it (clamped to 2^31 - 1 in the wide MAC).
+// exact): whole in v, narrowed to int32 in res, its zigzag as the stats
+// sum adds it, and its |res| as the stats max takes it (clamped to 2^31 -
+// 1 in the wide MAC).  Under the int32 MAC's bound res is whole too.
 template <bool WIDE>
 __device__ __forceinline__ void epilogue(int32_t x, long long acc, int sh,
-                                         int32_t& res, long long& z, int& a) {
+                                         long long& v, int32_t& res,
+                                         long long& z, int& a) {
   if (WIDE) {
-    const long long v = (long long)x - (acc >> sh);
+    v = (long long)x - (acc >> sh);
     res = (int32_t)v;
     z = (long long)(((unsigned long long)v << 1) ^
                     (unsigned long long)(v >> 63));
@@ -130,6 +147,7 @@ __device__ __forceinline__ void epilogue(int32_t x, long long acc, int sh,
     a = (int)(av < INT32_MAX_LL ? av : INT32_MAX_LL);
   } else {
     res = x - ((int32_t)(uint32_t)acc >> sh);
+    v = res;
     z = flacx::zigzag32(res);  // signed, as the plain int32 sum takes it
     a = abs(res);
   }
@@ -138,13 +156,17 @@ __device__ __forceinline__ void epilogue(int32_t x, long long acc, int sh,
 // The residual of the run's sample r (row position i): masked, written to
 // the segment's output or added to the stats.
 template <int MODE>
-__device__ __forceinline__ void emit(const Seg& sm, int c, int r, int i,
-                                     int m, int ord, int32_t res, long long z,
-                                     int a, long long& s, int& mx) {
-  if (i < ord) res = 0, z = 0, a = 0;
+__device__ __forceinline__ void emit(const Seg<MODE>& sm, int c, int r,
+                                     int i, int m, int ord, long long v,
+                                     int32_t res, long long z, int a,
+                                     long long& s, int& mx) {
+  if (i < ord) v = 0, res = 0, z = 0, a = 0;
   if (MODE == ZZ) sm.outs[c + r] = flacx::zigzag32(res);
+  if (MODE == ZZ64)
+    sm.outs[c + r] = (long long)(((unsigned long long)v << 1) ^
+                                 (unsigned long long)(v >> 63));
   if (MODE == RES) sm.outs[c + r] = res;
-  if (MODE != ZZ && c + r < m) {
+  if ((MODE == STATS || MODE == RES) && c + r < m) {
     s += z;
     mx = max(mx, a);
   }
@@ -158,7 +180,8 @@ __device__ __forceinline__ void emit(const Seg& sm, int c, int r, int i,
 // every product and partial sum is an integer below 2^50 (|x| < 2^31,
 // |tap| <= 2^14, 32 taps), exact in f64, so the sum is the int64 MAC's.
 template <int MODE, bool WIDE, int NT>
-__device__ __forceinline__ void segment(const Seg& sm, int s0, int m, int sh,
+__device__ __forceinline__ void segment(const Seg<MODE>& sm, int s0, int m,
+                                        int sh,
                                         int ord, long long& s, int& mx) {
   const int passes = (m + PASS - 1) / PASS;
   if (WIDE) {
@@ -181,11 +204,12 @@ __device__ __forceinline__ void segment(const Seg& sm, int s0, int m, int sh,
       }
 #pragma unroll
       for (int r = 0; r < RUN; ++r) {
+        long long v, z;
         int32_t res;
-        long long z;
         int a;
-        epilogue<true>(sm.xs[HALO + c + r], exact_ll(acc[r]), sh, res, z, a);
-        emit<MODE>(sm, c, r, s0 + c + r, m, ord, res, z, a, s, mx);
+        epilogue<true>(sm.xs[HALO + c + r], exact_ll(acc[r]), sh, v, res, z,
+                       a);
+        emit<MODE>(sm, c, r, s0 + c + r, m, ord, v, res, z, a, s, mx);
       }
     }
     return;
@@ -204,16 +228,16 @@ __device__ __forceinline__ void segment(const Seg& sm, int s0, int m, int sh,
 #pragma unroll
       for (int k = 0; k < NT; ++k)
         acc += (uint32_t)tr[k] * (uint32_t)win[NT + r - 1 - k];
+      long long v, z;
       int32_t res;
-      long long z;
       int a;
-      epilogue<false>(win[NT + r], (long long)acc, sh, res, z, a);
-      emit<MODE>(sm, c, r, s0 + c + r, m, ord, res, z, a, s, mx);
+      epilogue<false>(win[NT + r], (long long)acc, sh, v, res, z, a);
+      emit<MODE>(sm, c, r, s0 + c + r, m, ord, v, res, z, a, s, mx);
     }
   }
 }
 
-// MODE is STATS, ZZ or RES.
+// MODE is STATS, ZZ, RES or ZZ64.
 template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(THREADS) lpc_residual_kernel(Args a) {
   static_assert(MODE != RES || !WIDE, "res mode runs the int32 MAC only");
@@ -227,7 +251,7 @@ __global__ void __launch_bounds__(THREADS) lpc_residual_kernel(Args a) {
   const int n = a.n, s0 = sg * a.seg;
   const int m = min(a.seg, n - s0);  // samples of the segment
   const int32_t* xr = a.x + (size_t)row * n;
-  const Seg sm{seg.xd, seg.xs, seg.outs, tp};
+  const Seg<MODE> sm{seg.xd, seg.xs, seg.outs, tp};
   if (threadIdx.x < HALO) {  // warp 0
     const int32_t t = threadIdx.x < a.ntaps
                           ? a.taps[(size_t)row * a.ntaps + threadIdx.x]
@@ -273,10 +297,10 @@ __global__ void __launch_bounds__(THREADS) lpc_residual_kernel(Args a) {
 
   if (MODE != STATS) {
     __syncthreads();
-    int32_t* o = a.out + (size_t)row * n + s0;
+    Out<MODE>* o = static_cast<Out<MODE>*>(a.out) + (size_t)row * n + s0;
     for (int j = threadIdx.x; j < m; j += THREADS) o[j] = sm.outs[j];
   }
-  if (MODE != ZZ) {
+  if (MODE == STATS || MODE == RES) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     s = flacx::warp_sum(s);
     mx = flacx::warp_max(mx);
@@ -341,15 +365,20 @@ FLACX_API int flacx_lpc_residual_stats(const int32_t* x, const int32_t* taps,
   return (int)cudaGetLastError();
 }
 
-// Same inputs -> zz int32 [rows, n].
+// Same inputs -> zz [rows, n], int32 (the residual narrowed first), or
+// int64 when out64 != 0.
 FLACX_API int flacx_lpc_residual_zz(const int32_t* x, const int32_t* taps,
                                     const int32_t* shift, const int32_t* order,
-                                    int32_t* zz, int rows, int n, int ntaps,
-                                    int wide, int seg, cudaStream_t stream) {
+                                    void* zz, int rows, int n, int ntaps,
+                                    int wide, int seg, int out64,
+                                    cudaStream_t stream) {
   if (bad_args(rows, n, ntaps, seg)) return (int)cudaErrorInvalidValue;
   const Args a{x,  taps,    shift, order, zz, nullptr, nullptr,
                n,  ntaps,   seg,   (n + seg - 1) / seg};
-  launch<ZZ>(a, rows, wide, stream);
+  if (out64)
+    launch<ZZ64>(a, rows, wide, stream);
+  else
+    launch<ZZ>(a, rows, wide, stream);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,24 @@
 // wrapping with a cost above SENT in the plain version's int64: it never
 // wins there unless it is the only k.
 //
+// int64 zz (past 24-bit samples, the encoder's int64 working type): each
+// value is read as min(zz, 2^31) into the same uint32 tree, and the
+// statistics equal the plain int64 search's (ops.rice.rice_stats on int64
+// zz) in every value exact_plan uses.  Proof: a Rice parameter k <= kmax
+// <= 30 is eligible only where (max >> k) + k + 1 <= 32, i.e. max < (32 -
+// k) * 2^k <= 2^31 (the largest at k = 30), and an escape only where E =
+// bitlen(max) <= 31, i.e. max < 2^31.  So a partition that any coding can
+// take has every value below 2^31, read unchanged: its sums, max and
+// search are the int64 ones.  A partition holding a value >= 2^31 reads
+// max 2^31, and so does every coarser partition over it (a max of maxes):
+// bitlen 32, every k fails the cap ((2^31 >> 30) + 31 = 33 > 32), E = 32
+// passes 31, min = SENT and arg = 0, as the int64 search has them (its
+// sums may wrap, but no cost is formed from them).  On this route the cap
+// is checked in unsigned arithmetic, which cannot wrap for max <= 2^31: a
+// max of 2^31 - 1 rejects k = 0, as in int64, with no int32 exception.
+// The max is written as int32, so 2^31 comes out as -2^31; exact_plan
+// reads it back as unsigned.
+//
 // Design: one bottom-up partition tree.  S_k is additive over samples,
 // uint32 wrap included, so a partition's sums are its two children's sums
 // added and its max the larger of theirs.  A block takes a partition-
@@ -45,7 +63,8 @@
 //
 // Bound: bytes, set by the output at hi-res: 256 rows of 16384 samples,
 // 32767 partitions a row, 16.8 MB of zz read and 168 MB of statistics
-// written, 55 us at 3.35 TB/s; 12 us at the headline (37.7 MB of zz).
+// written, 55 us at 3.35 TB/s; 12 us at the headline (37.7 MB of zz); the
+// int64 route reads 8 B a value (23 us for 1024 x 2 x 4608).
 // Work: (kmax+1) shift-adds per sample at the finest stored level, (kmax
 // + 2) adds a partition per coarser level, and a few k a partition in the
 // search.
@@ -118,6 +137,31 @@ __device__ __forceinline__ void for_each_entry(int count, int kc, F f) {
 
 __device__ __forceinline__ int bitlen(uint32_t m) { return 32 - __clz(m); }
 
+// An int64 zz value as the tree reads it: min(zz, 2^31) (zz >= 0).
+__device__ __forceinline__ uint32_t saturate(long long z) {
+  return (unsigned long long)z < (1ull << 31) ? (uint32_t)z : 1u << 31;
+}
+
+// zz values of a row, int32 or (Z64) int64 read through saturate(): one
+// at index i, or four at 4 * i4 (16-byte aligned).
+template <bool Z64>
+struct Zz {
+  const void* p;
+  __device__ __forceinline__ uint32_t at(size_t i) const {
+    if (Z64) return saturate(__ldg(static_cast<const long long*>(p) + i));
+    return __ldg(static_cast<const uint32_t*>(p) + i);
+  }
+  __device__ __forceinline__ uint4 four(size_t i4) const {
+    if (Z64) {
+      const longlong2* q = static_cast<const longlong2*>(p) + 2 * i4;
+      const longlong2 a = __ldg(q), b = __ldg(q + 1);
+      return make_uint4(saturate(a.x), saturate(a.y), saturate(b.x),
+                        saturate(b.y));
+    }
+    return __ldg(static_cast<const uint4*>(p) + i4);
+  }
+};
+
 // The first of the WIN values of k whose sums a partition of max m keeps:
 // below bitlen(m) - 6, m >> k >= 64 and the code-length cap rejects k, and
 // past bitlen(m) S_k = 0.  A parent's window starts no lower than its
@@ -146,15 +190,16 @@ __device__ __forceinline__ void add_level(int count, int K, RD rd, WR wr) {
 }
 
 // Writes the (min4, arg4, min5, arg5, max) of one partition, given S(k),
-// its max and its count, at entry `at` of the row's output.
-template <typename SK>
+// its max and its count, at entry `at` of the row's output.  Z64: the cap
+// in unsigned arithmetic (m <= 2^31), else in int32 as the plain version.
+template <bool Z64, typename SK>
 __device__ __forceinline__ void search(SK S, uint32_t m, int K, int cnt,
                                        int32_t* o, int tot, int at) {
   const int k4 = min(K - 1, 14);
   int min4 = SENT, arg4 = 0, min5 = SENT, arg5 = 0;
   // (m >> 0) + 1 wraps in int32: k = 0 passes the cap at a cost above
   // SENT, so the all-ineligible argmin is k = 1, unless k = 0 is alone
-  const bool wrap = m == 0x7fffffffu;
+  const bool wrap = !Z64 && m == 0x7fffffffu;
   if (wrap) {
     if (K == 1)
       min4 = min5 = (int)(S(0) + (uint32_t)cnt);
@@ -164,7 +209,9 @@ __device__ __forceinline__ void search(SK S, uint32_t m, int K, int cnt,
   int kh = K - 1;
   if (cnt > 0) kh = min(kh, bitlen(m));  // S_k = 0 past bitlen(m)
   for (int k = kh; k >= (wrap ? 1 : 0); --k) {
-    if ((int)((m >> k) + (uint32_t)(k + 1)) > CODE_BITS_MAX) break;
+    const uint32_t code = (m >> k) + (uint32_t)(k + 1);
+    if (Z64 ? code > (uint32_t)CODE_BITS_MAX : (int)code > CODE_BITS_MAX)
+      break;
     const int bits = (int)(S(k) + (uint32_t)(k + 1) * (uint32_t)cnt);
     if (bits <= min5) {
       min5 = bits;
@@ -182,8 +229,9 @@ __device__ __forceinline__ void search(SK S, uint32_t m, int K, int cnt,
   o[4 * tot + at] = (int32_t)m;
 }
 
+template <bool Z64>
 __global__ void __launch_bounds__(THREADS)
-rice_stats_kernel(const int32_t* __restrict__ zz,
+rice_stats_kernel(const void* __restrict__ zz,
                   const int32_t* __restrict__ order, int32_t* __restrict__ out,
                   uint32_t* __restrict__ scratch, int* __restrict__ tickets,
                   int n, int max_po, unsigned po_mask, int kmax,
@@ -194,7 +242,10 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
   const int nseg = 1 << P.s;
   const int row = blockIdx.x >> P.s, sg = blockIdx.x & (nseg - 1);
   const size_t first = (size_t)row * n + (size_t)sg * P.seg;
-  const uint32_t* zr = reinterpret_cast<const uint32_t*>(zz) + first;
+  const Zz<Z64> zr{Z64 ? static_cast<const void*>(
+                            static_cast<const long long*>(zz) + first)
+                      : static_cast<const void*>(
+                            static_cast<const int32_t*>(zz) + first)};
   uint32_t* zs = smem;
   uint32_t* S = smem + zs_words(P);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -208,10 +259,9 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
   if (P.staged) {
     if ((first & 3) == 0 && (P.seg & 3) == 0) {
       for (int i = threadIdx.x; i < P.seg / 4; i += THREADS)
-        reinterpret_cast<uint4*>(zs)[i] =
-            __ldg(reinterpret_cast<const uint4*>(zr) + i);
+        reinterpret_cast<uint4*>(zs)[i] = zr.four(i);
     } else {
-      for (int i = threadIdx.x; i < P.seg; i += THREADS) zs[i] = __ldg(zr + i);
+      for (int i = threadIdx.x; i < P.seg; i += THREADS) zs[i] = zr.at(i);
     }
     __syncthreads();
     for_each_entry(1 << P.qlo, WIN + 1, [&](int e, int w) {
@@ -230,14 +280,14 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
   } else {
     const bool vec = (first & 3) == 0 && (ps & 3) == 0;
     for (int e = warp; e < (1 << P.qlo); e += WARPS) {
-      const uint32_t* zp = zr + (size_t)e * ps;
+      const size_t e0 = (size_t)e * ps;  // the partition's first value
       uint32_t acc[KMAX_MAX + 1];
 #pragma unroll
       for (int k = 0; k <= KMAX_MAX; ++k) acc[k] = 0;
       uint32_t m = 0;
       if (vec) {
         for (int i = lane; i < ps / 4; i += 32) {
-          const uint4 v = __ldg(reinterpret_cast<const uint4*>(zp) + i);
+          const uint4 v = zr.four(e0 / 4 + i);
           m = max(m, max(max(v.x, v.y), max(v.z, v.w)));
 #pragma unroll
           for (int k = 0; k <= KMAX_MAX; ++k)
@@ -246,7 +296,7 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
         }
       } else {
         for (int i = lane; i < ps; i += 32) {
-          const uint32_t z = __ldg(zp + i);
+          const uint32_t z = zr.at(e0 + i);
           m = max(m, z);
 #pragma unroll
           for (int k = 0; k <= KMAX_MAX; ++k)
@@ -296,12 +346,12 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
     const int at = (int)(po_mask & ((1u << po) - 1u)) + pg;
     if (po > P.lo) {  // one-sample partitions
       const uint32_t z = zs[e];
-      search([&](int k) { return z >> k; }, z, K, cnt, o, tot, at);
+      search<Z64>([&](int k) { return z >> k; }, z, K, cnt, o, tot, at);
     } else {
       const uint32_t* Se = S + ((1 << (po - P.s)) - 1 + e) * KS;
       const int bl = bitlen(Se[K]);
-      search([&](int k) { return k > bl ? 0u : Se[k]; }, Se[K], K, cnt, o,
-             tot, at);
+      search<Z64>([&](int k) { return k > bl ? 0u : Se[k]; }, Se[K], K, cnt,
+                  o, tot, at);
     }
   }
   if (nseg == 1) return;
@@ -333,24 +383,25 @@ rice_stats_kernel(const int32_t* __restrict__ zz,
     const uint32_t* He = H + ((1 << po) - 1 + e) * KS;
     const uint32_t m = __ldcg(He + K);
     const int bl = bitlen(m);
-    search([&](int k) { return k > bl ? 0u : __ldcg(He + k); }, m, K,
-           (n >> po) - (e == 0 ? ord : 0), o, tot,
-           (int)(po_mask & ((1u << po) - 1u)) + e);
+    search<Z64>([&](int k) { return k > bl ? 0u : __ldcg(He + k); }, m, K,
+                (n >> po) - (e == 0 ? ord : 0), o, tot,
+                (int)(po_mask & ((1u << po) - 1u)) + e);
   }
 }
 
 }  // namespace
 
-// zz int32 [rows, n] (>= 0), order int32 [rows] -> out int32 [rows, 5,
-// po_mask]: the 2^po entries of every order set in po_mask, levels
-// ascending.  seg_log2: the row's 2^seg_log2 segments (the wrapper's
-// segment_log2); past 0, scratch holds rows x (2^(seg_log2+1) - 1) x KS
-// words and tickets rows zeros.  Returns the CUDA error code of the
+// zz int32 [rows, n] (>= 0), or int64 when z64 != 0, order int32 [rows]
+// -> out int32 [rows, 5, po_mask]: the 2^po entries of every order set in
+// po_mask, levels ascending.  seg_log2: the row's 2^seg_log2 segments
+// (the wrapper's segment_log2); past 0, scratch holds rows x
+// (2^(seg_log2+1) - 1) x KS words and tickets rows zeros.  Returns the CUDA error code of the
 // launch.
-FLACX_API int flacx_rice_stats(const int32_t* zz, const int32_t* order,
+FLACX_API int flacx_rice_stats(const void* zz, const int32_t* order,
                                int32_t* out, uint32_t* scratch, int* tickets,
                                int rows, int n, int max_po, int po_mask,
-                               int kmax, int seg_log2, cudaStream_t stream) {
+                               int kmax, int seg_log2, int z64,
+                               cudaStream_t stream) {
   if (rows <= 0 || max_po < 0 || max_po > 15 || (n >> max_po) < 1 ||
       ((n >> max_po) << max_po) != n || kmax < 0 || kmax > KMAX_MAX ||
       (po_mask >> max_po) != 1)
@@ -359,8 +410,15 @@ FLACX_API int flacx_rice_stats(const int32_t* zz, const int32_t* order,
   if (seg_log2 < 0 || seg_log2 > P.lo || smem_bytes(P) > SMEM_BUDGET ||
       (seg_log2 > 0 && (!scratch || !tickets)))
     return (int)cudaErrorInvalidValue;
-  rice_stats_kernel<<<rows << seg_log2, THREADS, smem_bytes(P), stream>>>(
-      zz, order, out, scratch, tickets, n, max_po, (unsigned)po_mask, kmax,
-      seg_log2);
+  if (z64)
+    rice_stats_kernel<true><<<rows << seg_log2, THREADS, smem_bytes(P),
+                               stream>>>(zz, order, out, scratch, tickets, n,
+                                         max_po, (unsigned)po_mask, kmax,
+                                         seg_log2);
+  else
+    rice_stats_kernel<false><<<rows << seg_log2, THREADS, smem_bytes(P),
+                                stream>>>(zz, order, out, scratch, tickets,
+                                          n, max_po, (unsigned)po_mask, kmax,
+                                          seg_log2);
   return (int)cudaGetLastError();
 }

@@ -124,8 +124,13 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
       sh_v, sh_l: subframe-header symbols ``[B, C, SH]``.
       pv, pl: partition-parameter symbols ``[B, C, P]`` at
         ``emit.param_slot_positions(n, psize_min)``.
-      zz, x: int32 ``[B, C, N]`` zigzag residuals (0 at ``i < order``)
-        and samples.
+      zz, x: ``[B, C, N]`` zigzag residuals (0 at ``i < order``; int32,
+        or int64 past 24-bit samples) and int32 samples.  Of int64 ``zz``
+        the kernel reads the low 32 bits: every value it codes is below
+        2^31, since a partition that a Rice parameter (k ≤ 30) or an
+        escape (≤ 31 bits) codes holds no larger value
+        (``ops.rice.exact_plan``), and a subframe with any other partition
+        goes verbatim, from ``x``.
       kesc: int32 ``[B, C, N // psize_min]`` per-segment ``k | escape << 7``.
       kind, order, bps: ``[B, C]`` chosen subframe kind, predictor order
         and sample width.
@@ -148,7 +153,9 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
     check(sh_l, "sh_l", torch.int32, sh_v.shape, dev)
     check(pv, "pv", torch.int64, (b, c, p), dev)
     check(pl, "pl", torch.int32, (b, c, p), dev)
-    check(zz, "zz", torch.int32, (b, c, n), dev)
+    if zz.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"zz: dtype {zz.dtype}, expected int32 or int64")
+    check(zz, "zz", zz.dtype, (b, c, n), dev)
     check(x, "x", torch.int32, (b, c, n), dev)
     check(kesc, "kesc", torch.int32, (b, c, n // psize_min), dev)
     if max_frame_bytes % 4:
@@ -163,11 +170,12 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
     # each chunk's packed words, bit count and CRC part; a ticket a frame
     work = torch.empty(b * (chunks * (CHUNK_SLOTS + 2) + 1),
                        dtype=torch.int32, device=dev)
-    launch(bind("frame_pack", "flacx_frame_pack", 16, 12),
+    launch(bind("frame_pack", "flacx_frame_pack", 16, 13),
            [hdr_v, hdr_l, sh_v, sh_l, pv, pl, zz, x, kesc, meta, extra, mult,
             crc16_consts(dev), out, length, work],
            [b, c, h, sh, p, n, psize_min, max_frame_bytes, extra.numel(),
-            mult_head, CHUNK_SLOTS, PLACE_CHUNKS], "frame_pack")
+            mult_head, CHUNK_SLOTS, PLACE_CHUNKS,
+            int(zz.dtype == torch.int64)], "frame_pack")
     frame_pack.launches += 1
     return out, length
 

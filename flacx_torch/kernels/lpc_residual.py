@@ -8,7 +8,9 @@ lpc_residual_stats`` (stats mode), ``::zigzag_residual_tiles`` (zz mode),
 their two-limb split MAC included, and ``::lpc_residual_tiles`` (res
 mode); source, bound and design in ``csrc/lpc_residual.cu``.  The stats
 and zz modes have two MAC widths: int32 under its static bound, and an
-int64 ("wide") MAC that is exact for every row.  The res mode runs only
+int64 ("wide") MAC that is exact for every row; the zz mode writes int32
+(the residual narrowed first) or int64 (past 24-bit samples, whole).  The
+res mode runs only
 under the JAX package's int32 gate (``ops.lpc.fused_int32_ok``), as the
 TPU kernel does.
 """
@@ -63,11 +65,13 @@ def lpc_residual_stats_plain(x: torch.Tensor, taps: torch.Tensor,
 
 def lpc_residual_zz_plain(x: torch.Tensor, taps: torch.Tensor,
                           shift: torch.Tensor, order: torch.Tensor,
-                          eff_bps: int, sum_taps_max: int) -> torch.Tensor:
+                          eff_bps: int, sum_taps_max: int,
+                          out_dtype: torch.dtype = torch.int32,
+                          ) -> torch.Tensor:
     """Plain version of :func:`lpc_residual_zz`."""
     res, _, _ = predict_residual_fused(x, taps, shift, order, eff_bps,
                                        sum_taps_max)
-    return zigzag(res.to(torch.int32))
+    return zigzag(res.to(out_dtype))
 
 
 def lpc_residual_res_plain(x: torch.Tensor, taps: torch.Tensor,
@@ -121,19 +125,26 @@ def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
 
 def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
                     shift: torch.Tensor, order: torch.Tensor,
-                    eff_bps: int, sum_taps_max: int) -> torch.Tensor:
-    """``zigzag(res)`` int32 ``[..., n]``, zero at ``i < order``, the
-    residual narrowed to int32 first (same arguments as
-    :func:`lpc_residual_stats`)."""
+                    eff_bps: int, sum_taps_max: int,
+                    out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``zigzag(res)`` ``[..., n]`` in ``out_dtype``, zero at ``i <
+    order`` (the other arguments as :func:`lpc_residual_stats`): int32
+    narrows the residual to int32 first, as the encoder's int32 working
+    type does up to 24-bit samples; int64 keeps every residual whole, the
+    encoder's working type past them."""
+    if out_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"lpc_residual_zz: out_dtype {out_dtype}, expected "
+                        "int32 or int64")
     if x.device.type == "cpu":
         return lpc_residual_zz_plain(x, taps, shift, order, eff_bps,
-                                     sum_taps_max)
+                                     sum_taps_max, out_dtype)
     rows, n, t = _check_inputs(x, taps, shift, order)
-    zz = torch.empty_like(x)
+    zz = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     wide = mac_width(eff_bps, sum_taps_max) == "wide"
-    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 5),
+    launch(bind("lpc_residual", "flacx_lpc_residual_zz", 5, 6),
            [x, taps, shift, order, zz],
-           [rows, n, t, int(wide), segment_size(n)], "lpc_residual_zz")
+           [rows, n, t, int(wide), segment_size(n),
+            int(out_dtype == torch.int64)], "lpc_residual_zz")
     lpc_residual_zz.launches += 1
     return zz
 

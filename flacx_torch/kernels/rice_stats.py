@@ -9,7 +9,10 @@ searches them all from those sums; levels coarser than a segment are
 finished by the row's last block.  Bound: bytes (``zz`` read once, the
 statistics written once).  Source and design in ``csrc/rice_stats.cu``.
 Any block size whose finest partition divides it is taken (the TPU
-kernel's tile-ratio gap is not copied).
+kernel's tile-ratio gap is not copied).  int64 ``zz`` (past 24-bit
+samples) is read saturated at 2^31 into the same 32-bit tree: every
+partition a Rice parameter or an escape can code holds values below 2^31,
+and one that holds a larger value shows max 2^31, which neither can code.
 """
 
 from __future__ import annotations
@@ -51,14 +54,16 @@ def segment_log2(n: int, max_po: int, kmax: int) -> int:
 
 def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                porders: Sequence[int], kmax: int) -> dict:
-    """Per-level ``{po: (min4, arg4, min5, arg5, max)}`` of int32 ``zz``
-    ``[..., n]`` (≥ 0) with ``order [...]``, each ``[..., 2^po]`` int32,
-    bit for bit as :func:`flacx_torch.ops.rice.rice_stats`."""
+    """Per-level ``{po: (min4, arg4, min5, arg5, max)}`` of int32 or int64
+    ``zz`` ``[..., n]`` (≥ 0) with ``order [...]``, each ``[..., 2^po]``
+    int32, bit for bit as :func:`flacx_torch.ops.rice.rice_stats`."""
     if zz.device.type == "cpu":
         return rice_stats_plain(zz, order, porders, kmax)
     n = zz.shape[-1]
     lead = zz.shape[:-1]
-    check(zz, "zz", torch.int32)
+    if zz.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"zz: dtype {zz.dtype}, expected int32 or int64")
+    check(zz, "zz", zz.dtype)
     check(order, "order", torch.int32, lead, zz.device)
     levels = sorted(set(porders))
     max_po = levels[-1]
@@ -76,9 +81,10 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
         scratch = torch.empty((rows, (2 << s) - 1, table_stride(kmax)),
                               dtype=torch.int32, device=zz.device)
         tickets = torch.zeros(rows, dtype=torch.int32, device=zz.device)
-    launch(bind("rice_stats", "flacx_rice_stats", 5, 6),
+    launch(bind("rice_stats", "flacx_rice_stats", 5, 7),
            [zz, order, out, scratch, tickets],
-           [rows, n, max_po, po_mask, kmax, s], "rice_stats")
+           [rows, n, max_po, po_mask, kmax, s,
+            int(zz.dtype == torch.int64)], "rice_stats")
     rice_stats.launches += 1
     result = {}
     off = 0

@@ -119,15 +119,29 @@ def _search_levels(zz: torch.Tensor, order: torch.Tensor,
 
 def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                porders: Sequence[int], kmax: int) -> dict:
-    """Plain per-level search statistics of int32 ``zz``.
+    """Plain per-level search statistics of int32 or int64 ``zz``.
 
     Returns ``{po: (min4, arg4, min5, arg5, max)}``, each ``[..., 2^po]``
     int32, ``min*`` carrying :data:`SENT` where no k is eligible — the
-    statistics the Rice kernel computes in one pass over ``zz``.
+    statistics the Rice kernel computes in one pass over ``zz``.  int64
+    ``zz`` is searched in int64; its eligible costs are under 2^20 (each
+    value's ``zz >> k`` is at most 31), and ``max`` is saturated at 2^31,
+    which no Rice parameter (k ≤ 30) nor escape (31 bits) can code, and
+    written as int32 (2^31 as -2^31; :func:`exact_plan` reads it back as
+    unsigned).
     """
-    if zz.dtype != torch.int32:
-        raise TypeError("rice statistics are int32-only")
-    return _search_levels(zz, order, porders, kmax, SENT)
+    if zz.dtype == torch.int32:
+        return _search_levels(zz, order, porders, kmax, SENT)
+    if zz.dtype != torch.int64:
+        raise TypeError(f"rice statistics take int32 or int64, not "
+                        f"{zz.dtype}")
+    levels = _search_levels(zz, order, porders, kmax, INVALID)
+    top = 1 << 31
+    return {po: (torch.where(min4 >= INVALID, SENT, min4).to(torch.int32),
+                 arg4,
+                 torch.where(min5 >= INVALID, SENT, min5).to(torch.int32),
+                 arg5, torch.where(m >= top, -top, m).to(torch.int32))
+            for po, (min4, arg4, min5, arg5, m) in levels.items()}
 
 
 def exact_plan(zz: torch.Tensor, order: torch.Tensor,
@@ -147,7 +161,7 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
       allow_escape: admit ESCAPED partitions (raw two's-complement blocks)
         wherever they are strictly smaller than every eligible parameter.
       kernel_stats: per-level statistics from :func:`rice_stats` or the
-        Rice kernel (int32 ``zz`` only); searched here when None.
+        Rice kernel (int32 or int64 ``zz``); searched here when None.
 
     Returns a :class:`RicePlan`; ``bits`` includes the 2-bit coding method
     and 4-bit partition-order fields.
@@ -161,8 +175,9 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
         levels = _search_levels(zz, order, porders, kmax,
                                 SENT if i32 else INVALID)
     else:
-        if not i32:
-            raise TypeError("kernel rice stats are int32-only")
+        if zz.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"kernel rice stats take int32 or int64 zz, "
+                            f"not {zz.dtype}")
         levels = kernel_stats
 
     best_bits = torch.full(lead, INVALID, dtype=torch.int64, device=dev)
@@ -173,10 +188,12 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
         nparts = 1 << po
         psize = n >> po
         min4, arg4, min5, arg5, m = levels[po]
-        if i32:
-            # rejoin the int64 tail: remap the int32 invalid sentinel
+        if min4.dtype == torch.int32:
+            # rejoin the int64 tail: remap the int32 invalid sentinel, and
+            # read the max as unsigned (2^31, int64 zz's saturated max)
             min4 = torch.where(min4 >= SENT, INVALID, min4.long())
             min5 = torch.where(min5 >= SENT, INVALID, min5.long())
+            m = m.long() & 0xFFFFFFFF
         is_p0 = torch.arange(nparts, device=dev) == 0
         cnt = psize - order.long()[..., None] * is_p0
 

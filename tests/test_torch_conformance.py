@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 from flacx import conformance as fx_conf
 from flacx import pipeline as fx_pipeline
+from flacx.encoder import BatchEncoder as FxBatchEncoder
 from flacx.encoder import EncoderConfig as FxConfig
 from flacx.encoder import _jitted_encode as fx_jitted_encode
 from flacx.ops.lpc import tukey_window_np
@@ -188,10 +189,11 @@ def test_abs_residual_sums_plain(chain, p):
 
 
 def oracle_frames(frames: np.ndarray, first: int, n: int, p: int,
-                  porders=PORDERS, bps: int = 16) -> list[bytes]:
+                  porders=PORDERS, bps: int = 16,
+                  precision: int = PREC) -> list[bytes]:
     """flacx's oracle encoder on ``[F, C, n]`` blocks."""
-    return [fx_pipeline._oracle_frame(blk.T, first + i, bps, n, p, PREC,
-                                      porders)
+    return [fx_pipeline._oracle_frame(blk.T, first + i, bps, n, p,
+                                      precision, porders)
             for i, blk in enumerate(frames)]
 
 
@@ -291,6 +293,59 @@ def test_overflow_spike_takes_the_oracle():
     out = _encode_batch(cfg, torch.from_numpy(planar(pcm, 256)), 0)
     assert out["overflow"].tolist() == [True, False]
     assert port_file(pcm, **kw) == flacx_file(pcm, False, **kw)
+
+
+def test_overflow_batch_stats_equal_flacx():
+    """The spike batch of :func:`test_overflow_spike_takes_the_oracle`, a
+    frame a batch, through both ``BatchEncoder``s with ``stats``: a batch
+    with an overflow frame adds only its frame bytes (the oracle frame's),
+    the other its subframe kinds and stereo modes as well; the dicts are
+    equal."""
+    rng = np.random.default_rng(0)
+    pcm = rng.integers(-2, 3, size=(512, 2)).astype(np.int32)
+    pcm[40, 0] = 30000
+    kw = dict(block_size=256, max_lpc_order=4, partition_orders=(0,),
+              conformance=True)
+    blocks = planar(pcm, 256)
+    got, want = {}, {}
+    frames = BatchEncoder(EncoderConfig(**kw), batch_frames=1,
+                          device="cpu").encode_frames(blocks, 0, got)
+    ref = FxBatchEncoder(FxConfig(**kw), batch_frames=1) \
+        .encode_frames(blocks, 0, want)
+    assert frames == ref == oracle_frames(blocks, 0, 256, 4, (0,))
+    assert got == want
+    assert sum(got["subframe_kinds"].values()) == 2  # the second frame's
+
+
+def test_24_bit_precision_15_equals_flacx_and_oracle(monkeypatch):
+    """24-bit stereo at precision 15, where a residual may pass int32
+    (``residual_fits_int32`` false: the chosen residual's max is read):
+    every frame flacx packs byte-equal to flacx's, every frame through
+    ``BatchEncoder`` the oracle's, the same overflow flags."""
+    n, p, prec = 1152, 8, 15
+    assert not conformance.residual_fits_int32(24, p << (prec - 1))
+    pcm = np.concatenate([make_pcm(np.random.default_rng(40 + k), n, 2, 24,
+                                   kind) for k, kind in enumerate(KINDS)])
+    blocks = planar(pcm, n)
+    kw = dict(bps=24, channels=2, block_size=n, max_lpc_order=p,
+              qlp_precision=prec, partition_orders=PORDERS,
+              conformance=True)
+    ref = {k: np.asarray(v) for k, v in fx_jitted_encode(
+        FxConfig(**kw), None)(jnp.asarray(blocks), jnp.int64(7)).items()}
+    reads = []
+    stats = conformance.lpc_residual_stats
+    monkeypatch.setattr(conformance, "lpc_residual_stats",
+                        lambda *a: reads.append(1) or stats(*a))
+    cfg = EncoderConfig(**kw)
+    out = _encode_batch(cfg, torch.from_numpy(blocks), 7)
+    assert reads
+    np.testing.assert_array_equal(out["overflow"].numpy(), ref["overflow"])
+    for i in np.nonzero(~ref["overflow"])[0]:
+        got = out["bytes"][i, :out["length"][i]].numpy().tobytes()
+        assert got == ref["bytes"][i, :ref["length"][i]].tobytes(), i
+    frames = BatchEncoder(cfg, batch_frames=4, device="cpu") \
+        .encode_frames(blocks, 7)
+    assert frames == oracle_frames(blocks, 7, n, p, bps=24, precision=prec)
 
 
 def test_frame_past_the_buffer_takes_the_oracle():

@@ -1100,3 +1100,243 @@ def test_conformance_encode_on_card(dev, n, p, kinds):
     cpu = BatchEncoder(cfg, batch_frames=len(blocks), device="cpu") \
         .encode_frames(blocks, 9)
     assert card == cpu
+
+
+# ---------------------------------------------------------------------------
+# The 25- to 32-bit routes: int64 differences, int64 zz, int64 Rice input
+
+
+def wide_rows(seed: int, r: int, n: int, bits: int) -> np.ndarray:
+    """``[r, n]`` int32 rows of ``bits``-bit samples: :func:`rows` at that
+    width, full-scale white noise, the two extremes in runs of three."""
+    x = rows(seed, r, n, bits=bits)
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    x[2] = np.random.default_rng(seed).integers(lo, hi + 1, n)
+    x[3] = np.where(np.arange(n) // 3 % 2, hi, lo)
+    return x
+
+
+@pytest.mark.parametrize("eff_bps", [26, 27, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1152, 9217])
+def test_analysis_kernel_wide_differences(dev, eff_bps, dtype, n):
+    """Fixed-order sums on the int32 route at eff_bps 26 and the int64
+    route past it, samples up to +-2^31 (past 2^24 the f32 conversion
+    rounds to nearest even, as the plain version's), one and several
+    segments a row."""
+    x = torch.from_numpy(wide_rows(eff_bps, 6, n, eff_bps)).to(dev)
+    w = torch.rand((2, n), dtype=dtype,
+                   generator=torch.Generator().manual_seed(n)).to(dev)
+    autoc, fsums = k_an.analysis(x, w, 12, eff_bps)
+    ref_a, ref_f = k_an.analysis_plain(x, w, 12, eff_bps)
+    torch.cuda.synchronize()
+    assert k_an.diff_width(eff_bps) == ("int32" if eff_bps <= 26
+                                        else "int64")
+    assert torch.equal(fsums, ref_f)
+    rtol = 1e-9 if dtype == torch.float32 else 1e-12
+    tol = rtol * ref_a.abs() + 1e-12 * ref_a[..., :1].abs()
+    assert bool(((autoc - ref_a).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("eff_bps,ntaps,prec", [(17, 12, 5), (28, 12, 12),
+                                                (32, 12, 5), (32, 32, 15)])
+@pytest.mark.parametrize("n", [4608, 16384])
+def test_lpc_residual_kernel_zz_int64(dev, eff_bps, ntaps, prec, n):
+    """The zz mode's int64 output on both MACs (the int32 MAC at eff_bps
+    17, the wide one past it), and the stats at eff_bps 32 and precision
+    15, where |x| * sum |taps| reaches 2^31 * 2^19 = 2^50: every value
+    equal to the plain version's, the residual never narrowed."""
+    r = 8
+    x = torch.from_numpy(wide_rows(n, r, n, eff_bps)).to(dev)
+    rng = np.random.default_rng(n + ntaps)
+    top = 1 << (prec - 1)
+    taps = rng.integers(-top, top, (r, ntaps)).astype(np.int32)
+    taps[2] = -top
+    taps[3] = np.where(np.arange(ntaps) % 2, top - 1, -top)
+    order = rng.integers(0, ntaps + 1, r).astype(np.int32)
+    order[2:4] = ntaps
+    taps[np.arange(ntaps) >= order[:, None]] = 0
+    shift = rng.integers(0, 16, r).astype(np.int32)
+    shift[2:4] = 0
+    args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
+    bound = (eff_bps, ntaps << (prec - 1))
+    before = k_lr.lpc_residual_zz.launches
+    zz = k_lr.lpc_residual_zz(*args, *bound, torch.int64)
+    ref = k_lr.lpc_residual_zz_plain(*args, *bound, torch.int64)
+    got_s = k_lr.lpc_residual_stats(*args, *bound)
+    ref_s = k_lr.lpc_residual_stats_plain(*args, *bound)
+    torch.cuda.synchronize()
+    assert k_lr.lpc_residual_zz.launches == before + 1
+    assert zz.dtype == torch.int64 and torch.equal(zz, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got_s, ref_s))
+    if eff_bps == 32 and prec == 15:
+        assert int(ref.max()) > 1 << 40
+
+
+def int64_zz(seed: int, r: int, c: int, n: int, order: np.ndarray,
+             ) -> np.ndarray:
+    """int64 ``[r, c, n]`` zigzag residuals (zero at ``i < order``) of
+    many scales, with peaks at 2^31 - 2, 2^31 - 1, 2^31, 2^32 - 1, 2^32 and
+    2^40 in single partitions, and a row of 31-bit values (escapes of
+    E = 31)."""
+    rng = np.random.default_rng(seed)
+    scale = 2.0 ** rng.integers(0, 30, size=(r, c, 1))
+    zz = np.minimum(rng.exponential(size=(r, c, n)) * scale,
+                    2 ** 30 - 1).astype(np.int64)
+    peaks = np.array([(1 << 31) - 2, (1 << 31) - 1, 1 << 31, (1 << 32) - 1,
+                      1 << 32, 1 << 40])
+    at = rng.integers(0, n, (r, c, 2))
+    np.put_along_axis(zz, at, peaks[rng.integers(0, 6, (r, c, 2))], -1)
+    zz[0, 0] = rng.integers(1 << 30, 1 << 31, n)
+    return np.where(np.arange(n) < order[..., None], 0, zz)
+
+
+@pytest.mark.parametrize("n,porders,c", [
+    (4608, (0, 1, 2, 3, 4, 5), 2), (1152, (0, 1, 2, 3, 4, 5), 4),
+    (9216, tuple(range(11)), 2), (16384, tuple(range(15)), 2),
+    (64, tuple(range(7)), 2)])
+def test_rice_stats_kernel_int64(dev, n, porders, c):
+    """The int64 route (values saturated at 2^31 into the uint32 tree)
+    against the plain int64 search: partitions read from device memory
+    (144 and 36 samples) and staged (9, 1 and 2 samples, over many
+    segments), one-sample partitions at n = 64; the plans from its
+    statistics equal the plans the plain search gives, escapes of 31 bits
+    included."""
+    r = 6
+    order = np.random.default_rng(n).integers(0, 13, (r, c)).astype(np.int32)
+    if n == 64:
+        order[:] = np.minimum(order, 1)
+    zz = int64_zz(n, r, c, n, order)
+    zt, ot = torch.from_numpy(zz).to(dev), torch.from_numpy(order).to(dev)
+    before = k_rs.rice_stats.launches
+    got = k_rs.rice_stats(zt, ot, porders, 30)
+    ref = rice.rice_stats(zt, ot, porders, 30)
+    torch.cuda.synchronize()
+    assert k_rs.rice_stats.launches == before + 1
+    for po in ref:
+        assert all(torch.equal(a, b) for a, b in zip(got[po], ref[po])), po
+    plan = rice.exact_plan(zt, ot, porders, porders, 30, kernel_stats=got)
+    ref_plan = rice.exact_plan(zt, ot, porders, porders, 30)
+    for a, b in zip(plan, ref_plan):
+        assert torch.equal(a, b)
+    assert bool((plan.esc_seg & (plan.k_seg == 31)).any())
+
+
+def frame_pack_int64_args(dev, n, porders):
+    """``frame_pack`` arguments of two 32-bit stereo frames with int64
+    ``zz``: a fixed channel of small noise whose peak codes at zz = 2^31 -
+    2 beside a verbatim channel of full-scale noise (its zz past 2^31,
+    never read); white noise of 31 bits (escapes of E = 31) beside a tone
+    at order 2."""
+    rng = np.random.default_rng(n)
+    x = rng.integers(-(1 << 20), 1 << 20, (2, 2, n))
+    x[0, 0, n // 2] = (1 << 30) - 1
+    x[0, 1] = rng.integers(-(1 << 31), 1 << 31, n)
+    x[1, 0] = rng.integers(-(1 << 30), 1 << 30, n)
+    x[1, 1] = (np.sin(np.arange(n) * 0.01) * (1 << 29)).astype(np.int64)
+    kind = np.array([[emit.KIND_FIXED, emit.KIND_VERBATIM],
+                     [emit.KIND_FIXED, emit.KIND_FIXED]], np.int32)
+    order = np.array([[0, 0], [0, 2]], np.int32)
+    taps = np.zeros((2, 2, 12), np.int32)
+    taps[..., :4] = FIXED_PREDICTOR_TAPS[order]
+    t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        x=x.astype(np.int32), kind=kind, order=order, taps=taps,
+        shift=np.zeros((2, 2), np.int32),
+        bps=np.full((2, 2), 32, np.int32)).items()}
+    zz = k_lr.lpc_residual_zz_plain(t["x"], t["taps"], t["shift"],
+                                    t["order"], 32, 15, torch.int64)
+    plan = rice.exact_plan(zz, t["order"], porders, porders, 30)
+    coded = t["kind"] >= emit.KIND_FIXED
+    assert bool((plan.bits[coded] < 1 << 40).all())
+    assert int(zz[0, 0].max()) == (1 << 31) - 2
+    assert int(zz[0, 1].max()) >= 1 << 31
+    hdr = frame_header_symbols(torch.arange(2, device=dev) * 9,
+                               torch.ones(2, dtype=torch.int32, device=dev),
+                               n)
+    sh_v, sh_l = emit.subframe_header_symbols(
+        t["kind"], t["order"], t["bps"], t["x"], t["taps"], t["shift"], 5,
+        plan)
+    pv, pl = emit.partition_param_symbols(t["kind"], plan)
+    kesc = (plan.k_seg.int() | (plan.esc_seg.int() << 7)).contiguous()
+    cfg = EncoderConfig(block_size=n, bps=32, partition_orders=porders)
+    return [hdr.values, hdr.lengths, sh_v, sh_l, pv, pl, zz, t["x"], kesc,
+            t["kind"], t["order"], t["bps"], n >> max(porders),
+            cfg.max_frame_bytes], plan
+
+
+@pytest.mark.parametrize("n,porders", [(4608, (0, 1, 2, 3, 4, 5)),
+                                       (1152, (0, 1, 2, 3, 4, 5)),
+                                       (16384, tuple(range(15)))])
+def test_frame_pack_kernel_int64_zz(dev, n, porders):
+    """int64 ``zz``, of which the kernel reads the low 32 bits: a coded
+    residual of zz = 2^31 - 2, escapes of 31 bits, a verbatim channel
+    whose zz passes 2^31; the bytes of the plain version, which reads the
+    whole values, and of the same frames with ``zz`` narrowed to int32."""
+    args, plan = frame_pack_int64_args(dev, n, porders)
+    assert bool((plan.esc_seg & (plan.k_seg == 31)).any())
+    frame_pack_equal(args)
+    narrow = list(args)
+    narrow[6] = args[6].to(torch.int32)
+    assert torch.equal(k_fp.frame_pack(*narrow)[0], k_fp.frame_pack(*args)[0])
+
+
+@pytest.mark.parametrize("eff_bps", [25, 28, 32])
+@pytest.mark.parametrize("p", [12, 32])
+def test_lpc_allorder_kernel_past_24_bits(dev, eff_bps, p):
+    """Four sample limbs and the int64 combine at eff_bps 25, 28 and 32:
+    full-scale rows, taps of precision 15 (the extremes on one row, every
+    tap -2^14 at shift 0 on another)."""
+    x = wide_rows(eff_bps + p, 8, 1000, eff_bps)
+    assert k_la.sample_limbs(eff_bps) == 4
+    assert k_lr.mac_width(eff_bps, p << 14) == "wide"
+    allorder_case(dev, x, p, 15, eff_bps)
+    qcoefs = np.full((8, p, p), -(1 << 14), np.int32)
+    qcoefs *= np.arange(p) < np.arange(1, p + 1)[:, None]
+    got, ref = allorder_pair(dev, x, qcoefs, np.zeros((8, p), np.int32),
+                             eff_bps, p << 14)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert int(ref[1].max()) == (1 << 31) - 1
+
+
+@pytest.mark.parametrize("bps,channels,order_search", [
+    (28, 2, "estimate"), (32, 2, "estimate"), (32, 1, "exact"),
+    (25, 2, "exact")])
+def test_encode_past_24_bits_on_card(dev, bps, channels, order_search):
+    """``BatchEncoder`` at 25 to 32 bits on the card writes the plain CPU
+    path's frames wherever both chose the same coefficients (every frame
+    under the exact search), and the frames decode bit-exactly on the
+    card's device route."""
+    import io
+
+    from conftest import make_pcm
+
+    from flacx_torch import decoder
+    from flacx_torch.encoder import BatchEncoder
+    from flacx_torch.oracle.decoder import read_frame
+    from flacx_torch.stream import StreamWriter
+    n = 4608
+    pcm = np.concatenate([
+        make_pcm(np.random.default_rng(bps), 3 * n, channels, bps),
+        np.random.default_rng(1).integers(-(1 << (bps - 1)),
+                                          1 << (bps - 1), (n, channels))])
+    blocks = np.ascontiguousarray(
+        pcm.reshape(-1, n, channels).transpose(0, 2, 1).astype(np.int32))
+    cfg = EncoderConfig(block_size=n, bps=bps, channels=channels,
+                        order_search=order_search)
+    card = BatchEncoder(cfg, batch_frames=4).encode_frames(blocks, 0)
+    cpu = BatchEncoder(cfg, batch_frames=4, device="cpu") \
+        .encode_frames(blocks, 0)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a != b:
+            assert order_search == "estimate", i
+            fa, fb = read_frame(a, bps)[0], read_frame(b, bps)[0]
+            assert [sf.coefficients for sf in fa.subframes] != \
+                [sf.coefficients for sf in fb.subframes], i
+    f = io.BytesIO()
+    w = StreamWriter(f, 44100, bps, channels, len(pcm), n)
+    w.add_pcm(pcm)
+    w.write_frames(card)
+    w.finalize()
+    stats = {}
+    _, got = decoder.decode_array(f.getvalue(), device="cuda", stats=stats)
+    assert np.array_equal(got, pcm) and not stats.get("host"), stats

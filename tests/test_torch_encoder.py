@@ -134,7 +134,8 @@ def test_batch_encoder_streams_in_small_batches(batch):
     # encodes since the conformance slice (the reference's choices)
     ({"conformance": True, "order_search": "exact"}, None),
     ({"conformance": True}, None),
-    ({"bps": 25}, "bps 25"),
+    # encodes since the 25- to 32-bit slice (an int64 working type)
+    ({"bps": 25}, None),
     ({"bps": 24}, None),
     ({"bps": 24, "windows": ("tukey(0.5)", "hann")}, None),
     ({"partition_orders": tuple(range(10))}, None),
@@ -144,12 +145,14 @@ def test_batch_encoder_streams_in_small_batches(batch):
     # refused past the int32 MAC bound until lpc_allorder's wide MAC
     pytest.param({"max_lpc_order": 32, "qlp_precision": 15,
                   "order_search": "exact"}, None, id="changes7-int32 MAC"),
+    ({"bps": 32}, None),
 ])
 def test_unsupported_configs_raise(changes, later):
-    """What the port refuses (samples past 24 bits) raises on every
-    device; what the hi-res, file and conformance slices brought (24-bit,
-    512 partitions, order 32 at precision 15 in either order search,
-    conformance mode) encodes a frame that decodes bit-exactly."""
+    """What the port would refuse raises on every device (nothing is left
+    to refuse); what the hi-res, file, conformance and 25- to 32-bit
+    slices brought (24-bit, 512 partitions, order 32 at precision 15 in
+    either order search, conformance mode, samples of 25 and 32 bits)
+    encodes a frame that decodes bit-exactly."""
     cfg = EncoderConfig(block_size=N, **changes)
     if later is not None:
         with pytest.raises(NotImplementedError, match=later):
@@ -170,8 +173,7 @@ def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     a block's shared memory are not refused: ``rice_stats`` cuts a row
     into more segments, from the configuration alone, and ``frame_pack``
     packs chunks of a fixed slot count whatever the frame's size; the
-    configuration check accepts them."""
-    from flacx_torch.encoder import check_supported
+    encoder accepts them."""
     from flacx_torch.kernels import frame_pack as k_fp
     from flacx_torch.kernels import rice_stats as k_rs
     ok = EncoderConfig(block_size=N, partition_orders=tuple(range(9)))
@@ -191,7 +193,6 @@ def test_rice_shared_memory_refusal_is_the_same_on_every_device():
     assert k_rs.segment_log2(stereo.block_size, max(stereo.porders),
                              stereo.kmax) == 6
     for cfg in (many, stereo, six):
-        check_supported(cfg)
         BatchEncoder(cfg, device="cpu")
 
 

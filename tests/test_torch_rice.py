@@ -99,7 +99,9 @@ def test_estimate_bits_and_zigzag_match_flacx():
 
 
 def test_rice_stats_is_int32_only():
-    zz = torch.zeros((2, 1, 1000), dtype=torch.int64)
+    """The statistics are int32 tables of int32 ``zz`` or, past 24-bit
+    samples, of int64 ``zz``; ``zz`` of any other type is refused."""
+    zz = torch.zeros((2, 1, 1000), dtype=torch.int16)
     order = torch.zeros((2, 1), dtype=torch.int32)
     with pytest.raises(TypeError):
         rice.rice_stats(zz, order, (0, 3), KMAX)
@@ -107,3 +109,5 @@ def test_rice_stats_is_int32_only():
         rice.exact_plan(zz, order, (0, 3), (0, 3), KMAX,
                         kernel_stats=rice.rice_stats(zz.int(), order,
                                                      (0, 3), KMAX))
+    for t in rice.rice_stats(zz.long(), order, (0, 3), KMAX)[3]:
+        assert t.dtype == torch.int32
