@@ -50,7 +50,23 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   bit-exact against its PCM with every batch on the device route (the
   ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels), then the
   headline stream forced down the host parse (``reconstruct``'s serial
-  route, row ``reconstruct_serial@headline``).
+  route, row ``reconstruct_serial@headline``);
+* the corpus encode (``corpus``, ``BASELINE.json`` configs[3]):
+  ``python -m flacx_torch encode-corpus`` in process at its defaults over
+  1000 WAVs of 1-8 s drawn from the seed (16-bit/44.1 kHz stereo and
+  mono, 24-bit/48 kHz and 96 kHz stereo) and one unreadable file: every
+  output decoded on the card bit-exactly with every batch on the device
+  route, its STREAMINFO and MD5 checked; 8 files byte-equal to
+  ``encode_to_file`` on the card; the bad file ``FAILED``; a ``--resume``
+  run after one output is deleted and one input touched re-encodes
+  exactly those two; the wall, files/s, samples/s, x realtime, batches
+  per bucket and the oracle tails' share printed;
+* frame sharding (``sharded``), last: meshes of every visible card and of
+  two ``cuda:0`` entries; the headline batch through
+  ``BatchEncoder(sharding=...)``, a 20 s excerpt through
+  ``encode_to_file``, the headline stream's ``decode_array`` at 256 and
+  255 frames a batch and a 20-file corpus, each equal to the unsharded
+  card path, with the walls beside the unsharded ones.
 
 Each kernel is held against its plain PyTorch version on the card at the
 shapes its path gives it, those of the best path at each block size.  For
@@ -68,7 +84,8 @@ Prints one line per phase, the run's seconds, then the kernels' JSON line
 path, ``<kernel>@conformance`` in conformance mode, ``<mode>@hibps28``
 / ``<mode>@hibps32`` and ``lpc_allorder@best32`` past 24 bits,
 ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires`` /
-``<mode>@hires6`` on the hi-res ones;
+``<mode>@hires6`` on the hi-res ones, ``<mode>@corpus96k`` and
+``<mode>@corpus_mono`` on the corpus's 24-bit/96 kHz and mono batches;
 ``launches`` counts the launches of that path's counted encode, which
 runs ``batches`` batches), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -98,6 +115,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
 F64_OPS_PER_S = 64 * 132 * 1.98e9
+#: small launches that open each profiler trace (:func:`kernel_times`)
+TRACE_PRELUDE = 512
 
 
 def synth_pcm(rng: np.random.Generator, frames: int,
@@ -149,15 +168,22 @@ def kernel_times(torch, calls: dict, reps: int) -> dict:
     the symbol, their medians add up.  The profiler drops a launch's
     record now and then, the more often the more traces a process has
     taken; a trace that holds fewer than half of some kernel's launches
-    is taken again, up to three times."""
+    is taken again, up to three times.  The records it drops are the
+    trace's first ones, more of them the more the process has launched
+    since its last trace: each trace opens with :data:`TRACE_PRELUDE`
+    small launches that take the loss."""
     assert not any(a != b and a in b for a in calls for b in calls), calls
     for fn in calls.values():
         fn()
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     seen = []
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(TRACE_PRELUDE):
+                pad.add_(1)
+            torch.cuda.synchronize()
             for fn in calls.values():
                 for _ in range(reps):
                     fn()
@@ -1934,6 +1960,393 @@ def file_phase(torch) -> list[dict]:
     return rows
 
 
+#: the corpus phase (BASELINE.json configs[3]): WAVs of 1-8 s drawn from
+#: the seed in four buckets of (width, rate, channels, share), and one
+#: unreadable file, through ``encode-corpus`` at its defaults
+CORPUS_FILES = 1000
+CORPUS_BUCKETS = ((16, 44100, 2, 0.5), (16, 44100, 1, 0.2),
+                  (24, 48000, 2, 0.2), (24, 96000, 2, 0.1))
+CORPUS_SECONDS = (1.0, 8.0)
+CORPUS_BATCH = 512
+#: files of the corpus compared with ``encode_to_file`` (per bucket), and
+#: the sharded phase's corpus
+CORPUS_SAME, SHARDED_FILES = 2, 20
+
+
+def corpus_inputs(files: int, seed: int) -> list:
+    """``files`` WAV inputs, ``(width, rate, channels, interleaved PCM)``:
+    each bucket its share of the files (in an order drawn from the seed),
+    each file a window of a two-tone signal of that bucket's width and
+    rate, its length uniform in :data:`CORPUS_SECONDS`."""
+    rng = np.random.default_rng(seed)
+    counts = [int(round(share * files)) for *_, share in CORPUS_BUCKETS]
+    counts[0] += files - sum(counts)
+    kinds = rng.permutation(np.repeat(np.arange(len(CORPUS_BUCKETS)),
+                                      counts))
+    longest = int(CORPUS_SECONDS[1] * max(b[1] for b in CORPUS_BUCKETS))
+    base = {bps: synth_pcm(rng, 4 * longest, bps) for bps in (16, 24)}
+    out = []
+    for k in kinds.tolist():
+        bps, rate, ch, _ = CORPUS_BUCKETS[k]
+        n = int(rng.uniform(*CORPUS_SECONDS) * rate)
+        at = int(rng.integers(0, len(base[bps]) - n))
+        out.append((bps, rate, ch, np.ascontiguousarray(
+            base[bps][at:at + n, :ch])))
+    return out
+
+
+def write_corpus(root, inputs: list) -> list:
+    """The inputs as WAV files ``f<i>.wav`` under ``root``."""
+    from pathlib import Path
+
+    from flacx_torch.wavio import write_wav
+
+    Path(root).mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, (bps, rate, _, pcm) in enumerate(inputs):
+        paths.append(Path(root, f"f{i:04d}.wav"))
+        write_wav(paths[-1], rate, bps, pcm)
+    return paths
+
+
+def used(counts: dict) -> dict:
+    """The launch counts of the kernels that were launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_corpus_file(data: bytes, bps: int, rate: int, pcm: np.ndarray,
+                      what: str) -> dict:
+    """``decoder.decode_array`` on the card: the PCM bit-exact, every
+    batch on the device route (no host parse, no sequential decode), the
+    STREAMINFO's parameters and MD5 the input's; returns the routes."""
+    import hashlib
+
+    from flacx_torch import decoder
+    from flacx_torch.wavio import pcm_to_le_bytes
+
+    stats = {}
+    si, got = decoder.decode_array(data, device="cuda", stats=stats)
+    if not np.array_equal(got, pcm):
+        raise AssertionError(f"{what}: not bit-exact")
+    if set(stats) - {"device", "oracle_frames"} or not stats.get("device"):
+        raise AssertionError(f"{what}: decode routes {stats}")
+    want = (N, N, rate, pcm.shape[1], bps, len(pcm),
+            hashlib.md5(pcm_to_le_bytes(pcm, bps)).digest())
+    got_si = (si.min_block_size, si.max_block_size, si.sample_rate,
+              si.channels, si.sample_size, si.samples, si.md5)
+    if got_si != want:
+        raise AssertionError(f"{what}: STREAMINFO {si}")
+    return stats
+
+
+def corpus_phase(torch) -> list[dict]:
+    """``python -m flacx_torch encode-corpus`` in process on the card at
+    its defaults (block 4608, LPC order <= 12, ``--batch-frames 512``) over
+    :data:`CORPUS_FILES` WAVs and one unreadable file, counted: every
+    output decoded on the card bit-exactly on the device route, with its
+    STREAMINFO and MD5; :data:`CORPUS_SAME` files a bucket byte-equal to
+    ``encode_to_file`` on the card (a frame does not depend on its batch
+    neighbours); the bad file reported ``FAILED``; a ``--resume`` run
+    after one output is deleted and one input touched re-encodes exactly
+    those two.  The kernels are held against their plain versions on the
+    first batch of the 24-bit/96 kHz bucket (the wide MAC) and of the mono
+    bucket (rows ``<mode>@corpus96k``, ``<mode>@corpus_mono``)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import flacx_torch.parallel.corpus as corpus
+    from flacx_torch import cli, pipeline
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+    from flacx_torch.kernels import lpc_residual as k_lr
+
+    t_phase = time.perf_counter()
+    inputs = corpus_inputs(CORPUS_FILES, SEED + 12)
+    # the kernels at the corpus path's shapes, before the corpus run (the
+    # profiler drops more records the more the process has launched): the
+    # first batch of the 24-bit/96 kHz bucket (the wide MAC) and of the
+    # mono bucket
+    rows = []
+    for label, key in (("corpus96k", (24, 96000, 2)),
+                       ("corpus_mono", (16, 44100, 1))):
+        bps, rate, ch = key
+        picks = [pcm for b, r, c, pcm in inputs if (b, r, c) == key]
+        planar = np.concatenate([blocks_of(pcm[:len(pcm) // N * N], N,
+                                           np.int32) for pcm in picks])
+        planar = planar[:CORPUS_BATCH]
+        cfg = EncoderConfig(sample_rate=rate, bps=bps, channels=ch,
+                            block_size=N, max_lpc_order=12)
+        enc = BatchEncoder(cfg, batch_frames=CORPUS_BATCH)
+        captured, restore = capture_main_path_inputs()
+        try:
+            enc.encode_batch_indexed(planar, np.arange(len(planar)))
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        names = {w: w for w in HEADLINE_SPIES}
+        for w in ("lpc_residual_stats", "lpc_residual_zz"):
+            args = captured[w]
+            wide = k_lr.mac_width(args[4], args[5]) == "wide"
+            assert wide == (bps == 24), (label, w)
+            names[w] += "_wide" if wide else ""
+        group = [hold(torch, f"{names[w]}@{label}", w, captured[w])
+                 for w in HEADLINE_SPIES]
+        time_rows(torch, group)
+        for row, w in zip(group, HEADLINE_SPIES):
+            row["wrapper"] = w
+        rows += group
+        del captured
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = write_corpus(Path(tmp, "in"), inputs)
+        bad = Path(tmp, "in", "bad.wav")
+        bad.write_bytes(b"RIFF\x04\x00\x00\x00WAVEjunk")
+        out = Path(tmp, "out")
+        setup_s = time.perf_counter() - t0
+
+        tails, batches = [], {}
+        oracle_frame = corpus._oracle_frame
+        indexed = BatchEncoder.encode_batch_indexed
+
+        def timed_tail(*args):
+            t0 = time.perf_counter()
+            try:
+                return oracle_frame(*args)
+            finally:
+                tails.append(time.perf_counter() - t0)
+
+        def counted_batch(self, pcm, idx):
+            key = (self.config.bps, self.config.sample_rate,
+                   self.config.channels)
+            batches[key] = batches.get(key, 0) + 1
+            return indexed(self, pcm, idx)
+
+        def run(*flags) -> tuple:
+            text = io.StringIO()
+            corpus._oracle_frame = timed_tail
+            BatchEncoder.encode_batch_indexed = counted_batch
+            try:
+                with contextlib.redirect_stdout(text):
+                    t0 = time.perf_counter()
+                    _, counts = counted_run(lambda: cli.main(
+                        ["encode-corpus", *flags, str(out),
+                         *map(str, paths), str(bad)]), HEADLINE_SPIES)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                corpus._oracle_frame = oracle_frame
+                BatchEncoder.encode_batch_indexed = indexed
+            return wall, counts, text.getvalue()
+
+        wall, counts, text = run()
+        n_batches = sum(batches.values())
+        print(text, end="", flush=True)
+        lines = text.splitlines()
+        if (len(lines) != 2
+                or not lines[0].startswith(f"Encoded {CORPUS_FILES} files")
+                or not lines[1].startswith(f"  FAILED {bad}: read: ")):
+            raise AssertionError(f"corpus: completion print {lines}")
+        samples = sum(len(pcm) for *_, pcm in inputs)
+        seconds = sum(len(pcm) / rate for _, rate, _, pcm in inputs)
+        want = {}
+        for bps, rate, ch, pcm in inputs:
+            key = (bps, rate, ch)
+            want[key] = want.get(key, 0) + len(pcm) // N
+        want = {k: -(-v // CORPUS_BATCH) for k, v in want.items()}
+        if batches != want:
+            raise AssertionError(f"corpus: batches {batches}, expected "
+                                 f"{want}")
+        tails_expected = sum(len(pcm) % N != 0 for *_, pcm in inputs)
+        if len(tails) != tails_expected:
+            raise AssertionError(f"corpus: {len(tails)} oracle tails, "
+                                 f"expected {tails_expected}")
+        print(f"corpus ({CORPUS_FILES} WAVs of {CORPUS_SECONDS[0]:.0f}-"
+              f"{CORPUS_SECONDS[1]:.0f} s and one unreadable; buckets "
+              f"(bps, rate, channels) -> batches of {CORPUS_BATCH}: "
+              f"{batches}): wall {wall:.3f} s, {CORPUS_FILES / wall:.1f} "
+              f"files/s, {samples / wall:.1f} samples/s a channel, "
+              f"{seconds / wall:.1f}x realtime ({seconds:.1f} s of audio); "
+              f"oracle tails {sum(tails):.3f} s ({sum(tails) / wall:.3f} of "
+              f"the wall, {len(tails)} tails); launches {used(counts)}; WAV "
+              f"writing {setup_s:.1f} s", flush=True)
+
+        # every output decoded on the card
+        t0 = time.perf_counter()
+        routes = {}
+
+        def decode_all():
+            for i, (bps, rate, _, pcm) in enumerate(inputs):
+                data = (out / f"f{i:04d}.flac").read_bytes()
+                for k, v in check_corpus_file(data, bps, rate, pcm,
+                                              f"corpus file {i}").items():
+                    routes[k] = routes.get(k, 0) + v
+        _, dcounts = counted_run(decode_all, DECODE_PATH)
+        print(f"corpus decode: {CORPUS_FILES} files bit-exact on the card "
+              f"in {time.perf_counter() - t0:.3f} s, routes {routes}, "
+              f"launches {used(dcounts)}; STREAMINFO and MD5 right", flush=True)
+
+        # files of each bucket against encode_to_file on the card
+        same = []
+        for bps, rate, ch, _ in CORPUS_BUCKETS:
+            picks = [i for i, f in enumerate(inputs)
+                     if f[:3] == (bps, rate, ch)][:CORPUS_SAME]
+            for i in picks:
+                pcm = inputs[i][3]
+                f = io.BytesIO()
+                pipeline.encode_to_file(
+                    f, pcm, sample_rate=rate, bps=bps, channels=ch,
+                    block_size=N, max_lpc_order=12, qlp_precision=5,
+                    partition_orders=tuple(range(6)))
+                if f.getvalue() != (out / f"f{i:04d}.flac").read_bytes():
+                    raise AssertionError(f"corpus file {i}: not the bytes "
+                                         "of encode_to_file")
+                same.append(i)
+        print(f"corpus: files {same} byte-equal to encode_to_file on the "
+              "card", flush=True)
+
+        # --resume after one output is deleted and one input touched
+        gone, touched = paths[same[0]], paths[same[-1]]
+        before = {p: (out / (p.stem + ".flac")).read_bytes()
+                  for p in (gone, touched)}
+        (out / (gone.stem + ".flac")).unlink()
+        st = os.stat(touched)
+        os.utime(touched, ns=(st.st_atime_ns, st.st_mtime_ns + 10 ** 9))
+        read, read_wav = [], corpus.read_wav
+
+        def spied_read(path):
+            read.append(Path(path))
+            return read_wav(path)
+        corpus.read_wav = spied_read
+        try:
+            rwall, rcounts, text = run("--resume")
+        finally:
+            corpus.read_wav = read_wav
+        if sorted(read) != sorted([gone, touched, bad]) or not \
+                text.startswith(f"Encoded 2 files") or \
+                f"{CORPUS_FILES - 2} resumed" not in text:
+            raise AssertionError(f"corpus resume: read {read}, {text!r}")
+        for p, data in before.items():
+            if (out / (p.stem + ".flac")).read_bytes() != data:
+                raise AssertionError(f"corpus resume: {p.name} differs")
+        print(f"corpus --resume: wall {rwall:.3f} s, re-encoded exactly "
+              f"{gone.name} (output deleted) and {touched.name} (input "
+              f"touched), the same bytes; launches {used(rcounts)}; "
+              f"{text.splitlines()[0]}", flush=True)
+
+    for row in rows:
+        row["launches"] = counts[row.pop("wrapper")]
+        row["batches"] = n_batches
+    print(f"corpus phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def sharded_phase(torch, pcm: np.ndarray, headline: tuple) -> None:
+    """``sharding=`` on a mesh of every visible card and on one of two
+    ``cuda:0`` entries: the headline batch through ``BatchEncoder``
+    (counted) and a 20 s excerpt through ``encode_to_file``, byte-equal
+    to the unsharded card path; ``decode_array`` of the headline stream at
+    256 frames a batch (divides the meshes) and 255 (does not), bit-exact
+    on the device route; a 20-file corpus byte-equal to the unsharded
+    one.  Walls beside the unsharded ones."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import flacx_torch.decoder as dec
+    from flacx_torch import pipeline
+    from flacx_torch.encoder import BatchEncoder, EncoderConfig
+    from flacx_torch.parallel import data_mesh, frame_sharding
+    from flacx_torch.parallel.corpus import encode_corpus
+
+    t_phase = time.perf_counter()
+    meshes = {"cards": data_mesh(),
+              "cuda0x2": data_mesh(devices=("cuda:0", "cuda:0"))}
+    shardings = {None: None, **{k: frame_sharding(m)
+                                for k, m in meshes.items()}}
+    cfg = EncoderConfig(block_size=N, max_lpc_order=12)
+    planar = blocks_of(pcm, N)
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps
+
+    want, wall = timed(lambda: BatchEncoder(cfg, B).encode_frames(planar, 0))
+    text = [f"unsharded {wall * 1e3:.3f} ms"]
+    for label, sh in list(shardings.items())[1:]:
+        enc = BatchEncoder(cfg, B, sharding=sh)
+        frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                     HEADLINE_SPIES)
+        if frames != want:
+            raise AssertionError(f"sharded {label}: headline frames differ")
+        _, wall = timed(lambda: enc.encode_frames(planar, 0))
+        text.append(f"{label} ({sh.mesh.size} parts) {wall * 1e3:.3f} ms, "
+                    f"launches {used(counts)}")
+    print(f"sharded headline batch ({B} frames) byte-equal on every mesh; "
+          f"encode_frames: {'; '.join(text)}", flush=True)
+
+    excerpt = synth_pcm(np.random.default_rng(SEED + 20), 20 * 44100)
+    kw = dict(sample_rate=44100, bps=16, channels=2, block_size=N,
+              max_lpc_order=12, qlp_precision=5,
+              partition_orders=tuple(range(6)))
+    files, text = {}, []
+    for label, sh in shardings.items():
+        def encode():
+            f = io.BytesIO()
+            pipeline.encode_to_file(f, excerpt, sharding=sh, **kw)
+            return f.getvalue()
+        files[label], wall = timed(encode)
+        text.append(f"{label or 'unsharded'} {wall:.3f} s")
+    if len(set(files.values())) != 1:
+        raise AssertionError("sharded excerpt: files differ")
+    print(f"sharded 20 s excerpt through encode_to_file byte-equal on "
+          f"every mesh: {'; '.join(text)}", flush=True)
+
+    frames, hpcm, rate, bps, n = headline
+    data = flac_stream(frames, hpcm, rate, bps, n)
+    for bf in (256, 255):
+        text = []
+        for label, sh in shardings.items():
+            stats = {}
+            (_, got), dcounts = counted_run(
+                lambda: dec.decode_array(data, batch_frames=bf, stats=stats,
+                                         sharding=sh), DECODE_PATH)
+            batches = -(-(len(hpcm) // n) // bf)
+            if not np.array_equal(got, hpcm) or stats != {"device": batches}:
+                raise AssertionError(f"sharded decode {label} at {bf}: "
+                                     f"routes {stats}")
+            _, wall = timed(lambda: dec.decode_array(
+                data, batch_frames=bf, sharding=sh))
+            text.append(f"{label or 'unsharded'} {wall * 1e3:.3f} ms, "
+                        f"routes {stats}, launches {used(dcounts)}")
+        print(f"sharded decode_array of the headline stream at {bf} frames a "
+              f"batch, bit-exact: {'; '.join(text)}", flush=True)
+
+    inputs = corpus_inputs(SHARDED_FILES, SEED + 21)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_corpus(Path(tmp, "in"), inputs)
+        outs, text = {}, []
+        for label, sh in shardings.items():
+            out = Path(tmp, str(label))
+            t0 = time.perf_counter()
+            encode_corpus(paths, out, batch_frames=CORPUS_BATCH, sharding=sh)
+            text.append(f"{label or 'unsharded'} "
+                        f"{time.perf_counter() - t0:.3f} s")
+            outs[label] = [(out / (p.stem + ".flac")).read_bytes()
+                           for p in paths]
+        if any(v != outs[None] for v in outs.values()):
+            raise AssertionError("sharded corpus: files differ")
+    print(f"sharded corpus ({SHARDED_FILES} files) byte-equal on every mesh: "
+          f"{'; '.join(text)}; sharded phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1965,8 +2378,12 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += decode_phase(torch, streams)
     print(f"decode phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    headline = streams["headline"]
     del streams
     rows += file_phase(torch)
+    rows += corpus_phase(torch)
+    # last: it takes no profiler trace
+    sharded_phase(torch, pcm, headline)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

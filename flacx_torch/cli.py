@@ -1,11 +1,12 @@
-"""Command-line interface: ``python -m flacx_torch encode in.wav out.flac``
-and ``python -m flacx_torch decode in.flac out.wav``.
+"""Command-line interface: ``python -m flacx_torch encode in.wav out.flac``,
+``python -m flacx_torch decode in.flac out.wav`` and ``python -m
+flacx_torch encode-corpus outdir/ a.wav b.wav ...``.
 
-The JAX package's ``encode`` and ``decode`` subcommands with every flag,
-default, metavar and check, and the same completion prints; one addition
-to each, ``--device {cuda,cpu}``, picks the torch device (the card by
-default; ``cpu`` runs each kernel's plain PyTorch version).
-``encode-corpus`` comes with the parallel slice of the port.
+The JAX package's ``encode``, ``decode`` and ``encode-corpus`` subcommands
+with every flag, default, metavar and check, and the same completion
+prints; one addition to each, ``--device {cuda,cpu}``, picks the torch
+device (the card by default; ``cpu`` runs each kernel's plain PyTorch
+version).
 """
 
 from __future__ import annotations
@@ -147,6 +148,32 @@ def cmd_decode(path_in: Path, path_out: Path, oracle: bool = False,
     print(f"Decoding completed in {delta} seconds")
 
 
+def cmd_encode_corpus(args) -> None:
+    from flacx_torch.parallel.corpus import encode_corpus
+
+    if isinstance(args.rice_partition_order, str):
+        args.rice_partition_order = argparse_range(args.rice_partition_order)
+    time_start = timer()
+    result = encode_corpus(
+        args.infiles, args.outdir, block_size=args.block_size,
+        max_lpc_order=args.max_lpc_order,
+        qlp_precision=args.qlp_coeff_precision,
+        partition_orders=tuple(args.rice_partition_order),
+        batch_frames=args.batch_frames, stereo=args.stereo,
+        windows=tuple(w for w in args.apodization.replace(";", ",")
+                      .split(",") if w.strip()),
+        resume=args.resume, device=args.device)
+    delta = timer() - time_start
+    ratio = result.bytes_out / max(result.bytes_in, 1)
+    skipped = (f", {len(result.skipped)} resumed"
+               if result.skipped else "")
+    print(f"Encoded {len(result.encoded)} files "
+          f"({result.samples} samples) in {delta:.6g} seconds "
+          f"(ratio {ratio:.3f}){skipped}")
+    for path, err in result.failed.items():
+        print(f"  FAILED {path}: {err}")
+
+
 def make_argument_parser() -> ArgumentParser:
     parser = ArgumentParser(prog="flacx_torch",
                             formatter_class=ArgumentDefaultsHelpFormatter)
@@ -250,6 +277,37 @@ def make_argument_parser() -> ArgumentParser:
         "--device", choices=("cuda", "cpu"), default="cuda",
         help="Torch device of the batched pipeline: the card, or the CPU "
              "(each kernel's plain PyTorch version).")
+
+    corpus = action.add_parser(
+        "encode-corpus", formatter_class=ArgumentDefaultsHelpFormatter,
+        help="Batch-encode many WAV files with globally bucketed device "
+             "dispatches.")
+    corpus.add_argument("outdir", type=Path, metavar="outdir/")
+    corpus.add_argument("infiles", type=Path, nargs="+",
+                        metavar="infile.wav")
+    corpus.add_argument("-b", "--block-size", type=int,
+                        default=DEFAULT_BLOCK_SIZE, metavar="N")
+    corpus.add_argument("-l", "--max-lpc-order", type=int,
+                        default=DEFAULT_MAX_LPC_ORDER, metavar="N")
+    corpus.add_argument("-q", "--qlp-coeff-precision", type=int,
+                        default=DEFAULT_QLP_COEFF_PRECISION, metavar="N")
+    corpus.add_argument("-r", "--rice-partition-order", type=argparse_range,
+                        default=DEFAULT_RICE_PARTITION_ORDER,
+                        metavar="[M,]N")
+    corpus.add_argument("--batch-frames", type=int, default=512, metavar="N")
+    corpus.add_argument("-A", "--apodization", default="tukey(0.5)",
+                        metavar="W[;W...]",
+                        help="LPC apodization window(s), as in encode -A.")
+    corpus.add_argument("--stereo", choices=("auto", "independent"),
+                        default="auto")
+    corpus.add_argument(
+        "--resume", action="store_true",
+        help="Skip inputs already completed by a previous run into the "
+             "same outdir (file-granular checkpoint manifest).")
+    corpus.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="Torch device of the batched pipeline: the card, or the CPU "
+             "(each kernel's plain PyTorch version).")
     return parser
 
 
@@ -258,6 +316,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.action == ACTION_DECODE:
         cmd_decode(args.infile, args.outfile, args.no_device,
                    args.batch_frames, args.stream, args.device)
+    if args.action == "encode-corpus":
+        cmd_encode_corpus(args)
     if args.action == ACTION_ENCODE:
         if isinstance(args.rice_partition_order, str):
             args.rice_partition_order = argparse_range(

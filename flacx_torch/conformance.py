@@ -49,7 +49,7 @@ from flacx_torch.kernels.reference_analysis import (abs_residual_sums,
                                                     reference_lpc)
 from flacx_torch.ops import emit
 from flacx_torch.ops.framepack import pack_frames
-from flacx_torch.ops.headers import frame_header_symbols
+from flacx_torch.ops.headers import frame_header_symbols, frame_indices
 from flacx_torch.ops.lpc import tukey_window_np
 from flacx_torch.ops.rice import RicePlan, bit_length, plan_from_segments
 
@@ -250,9 +250,9 @@ def residual_fits_int32(bps: int, sum_taps_max: int) -> bool:
     return bps + max(1, sum_taps_max).bit_length() <= 30
 
 
-def encode_batch_conformance(cfg, pcm: torch.Tensor,
-                             first_index: int) -> dict:
-    """Reference-choice encode of pcm ``[B, C, N]`` into packed frames.
+def encode_batch_conformance(cfg, pcm: torch.Tensor, frame_index) -> dict:
+    """Reference-choice encode of pcm ``[B, C, N]`` into packed frames,
+    ``frame_index`` a scalar first index or a per-frame ``[B]`` array.
 
     The output dict of ``encoder._encode_batch`` (``bytes``, ``length``,
     ``kind``, ``channel_code``, ``subframe_bits``, zeros here) plus
@@ -273,6 +273,7 @@ def encode_batch_conformance(cfg, pcm: torch.Tensor,
     t = cfg.max_taps
     prec = cfg.qlp_precision
     dev = pcm.device
+    indices = frame_indices(frame_index, b, dev)
     x = pcm.to(torch.int32).contiguous()                  # [B, C, N]
     rows = x.reshape(b * c, n)
     i_pos = torch.arange(n, device=dev)
@@ -356,8 +357,7 @@ def encode_batch_conformance(cfg, pcm: torch.Tensor,
         8 + bps64)
     ch_code = torch.full((b,), int(INDEPENDENT_CHANNELS[c]),
                          dtype=torch.int32, device=dev)
-    hdr = frame_header_symbols(first_index + torch.arange(
-        b, dtype=torch.int64, device=dev), ch_code, n)
+    hdr = frame_header_symbols(indices, ch_code, n)
     frame_len = hdr.nbytes + (sub_bits.sum(-1) + 7) // 8 + 2
     overflow = long_code | wraps | (frame_len > cfg.max_frame_bytes)
     kind = torch.where(overflow[:, None], emit.KIND_VERBATIM, kind) \

@@ -37,7 +37,7 @@ import torch
 
 import flacx_torch.coded_number as _cn
 from flacx_torch.bitio import BitReader
-from flacx_torch.device import resolve_device
+from flacx_torch.device import on_device
 from flacx_torch.format import MAGIC, MetadataBlockType, Streaminfo
 from flacx_torch.kernels.bit_unpack import bit_unpack
 from flacx_torch.kernels.crc16_rows import crc16_rows
@@ -48,6 +48,7 @@ from flacx_torch.native import scan_candidates, scan_frames, scatter_rows
 from flacx_torch.oracle.decoder import (FlacFormatError, read_frame,
                                         read_metadata_header,
                                         read_streaminfo)
+from flacx_torch.parallel.mesh import home_device
 
 #: minimum host core count for the walker's inline-IIR sample state (the
 #: chunk route of ``reconstruct``): the walker threads across rows, so
@@ -325,18 +326,33 @@ def _state_interval(n: int, c: int, bps: int) -> int:
 
 def _decode_rows_device(rows: np.ndarray, lens: np.ndarray, n: int, c: int,
                         bps: int, verify_crc: bool, dev: torch.device,
-                        rows_dev: torch.Tensor | None = None):
+                        rows_dev: torch.Tensor | None = None, sharding=None):
     """Device decode path: C++ structure walk + the three kernels.
 
     Returns ``(pcm, err, crc_ok)`` tensors (not synchronised), and raises
     ValueError on malformed streams.  ``rows_dev`` optionally supplies the
-    row bytes already on the device.
+    row bytes already on the device.  Under ``sharding`` a batch whose
+    frame count divides the mesh is split into one part a device, each
+    part walked and launched in turn and the parts joined on the first
+    part's device; any other batch decodes whole on ``dev`` (the mesh's
+    first device), as in the JAX package.
     """
+    f = rows.shape[0]
+    if sharding is not None and f and sharding.divides(f):
+        trips = []
+        for part_dev, lo, hi in sharding.parts(f):
+            with on_device(part_dev):
+                trips.append(_decode_rows_device(
+                    rows[lo:hi], lens[lo:hi], n, c, bps, verify_crc,
+                    part_dev))
+        home = trips[0][0].device
+        return (torch.cat([t[0].to(home) for t in trips]),
+                torch.cat([t[1].to(home) for t in trips]).amax(0, True),
+                torch.cat([t[2].to(home) for t in trips]).amin(0, True))
     # start the rows' copy first: from pinned memory it is asynchronous,
     # so the bytes stream to the card while the walker runs
     if rows_dev is None:
         rows_dev, = _upload([rows], torch.uint8, dev)
-    f = rows.shape[0]
     state_ss = _state_interval(n, c, bps)
     scan = scan_frames(rows, np.zeros(f, np.int64), n, c, bps,
                        state_interval=state_ss)
@@ -434,7 +450,8 @@ def _decode_var_frames(data: bytes, streaminfo: Streaminfo,
                        offsets: np.ndarray, bsizes: np.ndarray,
                        ends_b: np.ndarray, batch_frames: int,
                        verify_crc: bool, dev: torch.device,
-                       stats: dict | None) -> np.ndarray | None:
+                       stats: dict | None, sharding=None,
+                       ) -> np.ndarray | None:
     """Grouped batch decode of a chained set of variable-size frames.
 
     ``offsets``/``ends_b`` delimit each frame's bytes in ``data`` and
@@ -488,7 +505,8 @@ def _decode_var_frames(data: bytes, streaminfo: Streaminfo,
             rows = scatter_rows(arr, offsets[sel], ends_b[sel], width)
             try:
                 trip = _decode_rows_device(rows, lens, bs, c, bps,
-                                           verify_crc, dev)
+                                           verify_crc, dev,
+                                           sharding=sharding)
             except ValueError:
                 trip = None
             if pending is not None and not resolve(pending):
@@ -501,7 +519,7 @@ def _decode_var_frames(data: bytes, streaminfo: Streaminfo,
 
 def _decode_variable(data: bytes, streaminfo: Streaminfo, first: int,
                      batch_frames: int, verify_crc: bool, dev: torch.device,
-                     stats: dict | None) -> np.ndarray | None:
+                     stats: dict | None, sharding=None) -> np.ndarray | None:
     """Batch decode of a whole variable-blocking / mixed-block-size stream:
     the frame chain, then :func:`_decode_var_frames`.  Returns ``None``
     when the scan cannot establish an exact frame tiling or a frame fails
@@ -521,30 +539,35 @@ def _decode_variable(data: bytes, streaminfo: Streaminfo, first: int,
         return None
     ends_b = np.append(offsets[1:], len(data))
     return _decode_var_frames(data, streaminfo, offsets, bsizes, ends_b,
-                              batch_frames, verify_crc, dev, stats)
+                              batch_frames, verify_crc, dev, stats, sharding)
 
 
 def decode_array(data: bytes, batch_frames: int = 256,
                  verify_crc: bool = True, oracle: bool = False,
                  device: str | torch.device = "cuda",
-                 stats: dict | None = None) -> tuple[Streaminfo, np.ndarray]:
+                 stats: dict | None = None,
+                 sharding=None) -> tuple[Streaminfo, np.ndarray]:
     """Decode a whole FLAC stream to PCM ``[samples, channels]`` int32.
 
     ``stats`` (a dict) gathers the batches by route (module docstring).
-    Malformed input of any shape raises :class:`FlacFormatError` — never a
-    bare ``EOFError``.
+    ``sharding`` (:func:`flacx_torch.parallel.frame_sharding`) splits each
+    device batch whose frame count divides its mesh over the mesh's
+    devices; other batches decode whole on the mesh's first device, on
+    the device route all the same.  ``device`` must then name the mesh's
+    device type.  Malformed input of any shape raises
+    :class:`FlacFormatError` — never a bare ``EOFError``.
     """
-    dev = resolve_device(device)
+    dev = home_device(device, sharding)
     try:
         return _decode_array(data, batch_frames, verify_crc, oracle, dev,
-                             stats)
+                             stats, sharding)
     except EOFError:
         raise FlacFormatError("truncated stream") from None
 
 
 def _decode_array(data: bytes, batch_frames: int, verify_crc: bool,
-                  oracle: bool, dev: torch.device,
-                  stats: dict | None) -> tuple[Streaminfo, np.ndarray]:
+                  oracle: bool, dev: torch.device, stats: dict | None,
+                  sharding=None) -> tuple[Streaminfo, np.ndarray]:
     streaminfo, first = parse_stream_header(data)
     n = streaminfo.max_block_size
     c = streaminfo.channels
@@ -562,7 +585,7 @@ def _decode_array(data: bytes, batch_frames: int, verify_crc: bool,
     # decode, the strict sequential decoder where it cannot
     if streaminfo.min_block_size != streaminfo.max_block_size:
         pcm = _decode_variable(data, streaminfo, first, batch_frames,
-                               verify_crc, dev, stats)
+                               verify_crc, dev, stats, sharding)
         if pcm is None:
             return sequential()
         return streaminfo, pcm
@@ -619,7 +642,7 @@ def _decode_array(data: bytes, batch_frames: int, verify_crc: bool,
         try:
             trip = _decode_rows_device(rows, lens, n, c,
                                        streaminfo.sample_size, verify_crc,
-                                       dev)
+                                       dev, sharding=sharding)
         except ValueError:
             return sequential()
         if pending is not None and not resolve(pending):
@@ -670,11 +693,12 @@ class _RowBatchDecoder:
     """
 
     def __init__(self, streaminfo: Streaminfo, verify_crc: bool,
-                 dev: torch.device, stats: dict | None):
+                 dev: torch.device, stats: dict | None, sharding=None):
         self.si = streaminfo
         self.verify_crc = verify_crc
         self.dev = dev
         self.stats = stats
+        self.sharding = sharding
 
     def submit(self, rows: np.ndarray, lens: np.ndarray):
         """Start the device decode; returns an entry."""
@@ -682,7 +706,7 @@ class _RowBatchDecoder:
             trip = _decode_rows_device(rows, lens, self.si.max_block_size,
                                        self.si.channels,
                                        self.si.sample_size, self.verify_crc,
-                                       self.dev)
+                                       self.dev, sharding=self.sharding)
         except ValueError:
             trip = None
         return (trip, rows, lens)
@@ -706,7 +730,8 @@ class _RowBatchDecoder:
 
 def decode_stream(f, batch_frames: int = 256, verify_crc: bool = True,
                   oracle: bool = False, device: str | torch.device = "cuda",
-                  readahead: int = 4 << 20, stats: dict | None = None):
+                  readahead: int = 4 << 20, stats: dict | None = None,
+                  sharding=None):
     """Constant-memory streaming decode of a FLAC byte stream.
 
     Returns ``(streaminfo, chunks)`` where ``chunks`` is a generator of
@@ -717,10 +742,10 @@ def decode_stream(f, batch_frames: int = 256, verify_crc: bool = True,
     device; windows the scan or batch routes reject (scan ambiguity,
     displaced boundaries) are re-decoded sequentially by the strict
     oracle.  ``f`` only needs ``read()``; the stream may be unseekable (a
-    pipe).  ``stats`` as in :func:`decode_array` (``sequential`` counts
-    windows).
+    pipe).  ``stats`` and ``sharding`` as in :func:`decode_array`
+    (``sequential`` counts windows).
     """
-    dev = resolve_device(device)
+    dev = home_device(device, sharding)
     head = b""
     while True:
         piece = f.read(1 << 16)
@@ -736,11 +761,11 @@ def decode_stream(f, batch_frames: int = 256, verify_crc: bool = True,
     bps = streaminfo.sample_size
     fixed_blocking = streaminfo.min_block_size == streaminfo.max_block_size
     batched = not oracle
-    bdec = (_RowBatchDecoder(streaminfo, verify_crc, dev, stats)
+    bdec = (_RowBatchDecoder(streaminfo, verify_crc, dev, stats, sharding)
             if batched and fixed_blocking else None)
     # windows whose boundary scan resolved duplicates heuristically must
     # verify CRC-16 even when the caller opted out
-    bdec_strict = (_RowBatchDecoder(streaminfo, True, dev, stats)
+    bdec_strict = (_RowBatchDecoder(streaminfo, True, dev, stats, sharding)
                    if bdec is not None and not verify_crc else bdec)
 
     def sequential_window(buf: bytes, eof: bool):
@@ -804,7 +829,7 @@ def decode_stream(f, batch_frames: int = 256, verify_crc: bool = True,
                     pcm = _decode_var_frames(
                         window, streaminfo, voffs[:-1], vbs[:-1],
                         voffs[1:], batch_frames, verify_crc or vamb, dev,
-                        stats)
+                        stats, sharding)
                     if pcm is not None:
                         yield pcm
                         if eof:

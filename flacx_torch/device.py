@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"flacx_torch: unsupported device {str(dev)!r}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """The context that makes ``dev`` the current card (kernels launch on
+    the current card's stream); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from flacx_torch.conformance import encode_batch_conformance
-from flacx_torch.device import resolve_device
+from flacx_torch.device import on_device
 from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
                                 Channels)
 from flacx_torch.kernels.analysis import analysis
@@ -47,11 +47,12 @@ from flacx_torch.kernels.lpc_residual import (lpc_residual_res,
 from flacx_torch.kernels.rice_stats import rice_stats
 from flacx_torch.ops import emit, rice
 from flacx_torch.ops.framepack import pack_frames
-from flacx_torch.ops.headers import frame_header_symbols
+from flacx_torch.ops.headers import frame_header_symbols, frame_indices
 from flacx_torch.ops.lpc import (apodization_window_np, fused_int32_ok,
                                  levinson_all_orders, merge_windows,
                                  quantize_all_orders, window_candidates,
                                  window_from_numpy)
+from flacx_torch.parallel.mesh import home_device
 
 _INF = 1 << 50
 
@@ -225,9 +226,13 @@ def _gather_pair(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return arr.gather(1, idx.expand(-1, -1, *arr.shape[2:]))
 
 
-def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
+def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
                   windows: torch.Tensor | None = None) -> dict:
     """pcm int16/int32 ``[B, channels, N]`` → frames ``[B, max_bytes]``.
+
+    ``frame_index`` is either a scalar (the first index of a contiguous
+    batch) or a per-frame ``[B]`` int64 array or tensor (a corpus batch
+    mixes the frames of many files); one of another length raises.
 
     ``windows`` holds one ``[N]`` apodization window per name in
     ``cfg.windows`` (``[W, N]``; a lone ``[N]`` for one window), in the
@@ -239,7 +244,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     encode_batch_conformance`, which adds ``overflow``).
     """
     if cfg.conformance:
-        return encode_batch_conformance(cfg, pcm, first_index)
+        return encode_batch_conformance(cfg, pcm, frame_index)
     n = cfg.block_size
     b = pcm.shape[0]
     p = cfg.max_lpc_order
@@ -248,6 +253,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
     kmax = cfg.kmax
     exact = cfg.order_search == "exact"
     dev = pcm.device
+    indices = frame_indices(frame_index, b, dev)
     if windows is None:
         windows = analysis_windows(cfg, dev)
     windows = windows.reshape(-1, n)
@@ -469,7 +475,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
                            torch.minimum(verb_total, pred_total))
 
     # ----- emission --------------------------------------------------------
-    hdr = frame_header_symbols(first_index + ar(b), ch_code, n)
+    hdr = frame_header_symbols(indices, ch_code, n)
     frame_bytes, length = pack_frames(
         hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift, prec,
         zz, plan, psize_min, cfg.max_frame_bytes,
@@ -478,25 +484,64 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, first_index: int,
             "channel_code": ch_code, "subframe_bits": sub_bits}
 
 
+def _fetch(result, valid: int, key: str, width: int | None = None,
+           ) -> np.ndarray:
+    """The first ``valid`` rows of ``result[key]`` on the host (its first
+    ``width`` columns where given), the parts of a sharded result joined
+    in frame order."""
+    out = []
+    for part in result if isinstance(result, list) else [result]:
+        t = part[key][:max(valid, 0)]
+        if width is not None:
+            t = t[:, :width]
+        out.append(t.cpu().numpy())
+        valid -= part[key].shape[0]
+    return np.concatenate(out)
+
+
 class BatchEncoder:
     """Batched frame encoder with host assembly.
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     PyTorch path (no kernels).  There is no fallback between the two.
+    ``sharding`` (:func:`flacx_torch.parallel.frame_sharding`) splits each
+    batch into contiguous parts, one a device of its mesh: every part is
+    launched on its device before any is read back, and the drain joins
+    them in frame order.  ``device`` must then name the mesh's device type
+    (and, with an index, one of its devices).
     """
 
     def __init__(self, config: EncoderConfig, batch_frames: int = 32,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", sharding=None):
         self.config = config
         self.batch_frames = batch_frames
-        self.device = resolve_device(device)
-        self._windows = analysis_windows(config, self.device)
+        self.sharding = sharding
+        self.device = home_device(device, sharding)
+        devs = (self.device,) if sharding is None else sharding.mesh.devices
+        self._part_windows = {dev: analysis_windows(config, dev)
+                              for dev in dict.fromkeys(devs)}
+        self._windows = self._part_windows[self.device]
 
-    def encode_batch_device(self, pcm, first_index: int) -> dict:
+    def encode_batch_device(self, pcm, first_index: int):
         """Run the pipeline on ``[B, channels, N]`` int16 or int32 PCM
         (numpy or tensor); returns the device tensors of
-        :func:`_encode_batch`.  int16 input crosses to the device as
+        :func:`_encode_batch`, under ``sharding`` a list of such dicts,
+        one a part in frame order.  int16 input crosses to the device as
         int16 and is widened there."""
+        return self._run(pcm, int(first_index))
+
+    def encode_batch_indexed(self, pcm, frame_indices):
+        """:meth:`encode_batch_device` with a per-frame coded number:
+        ``frame_indices`` int64 ``[B]`` (numpy or tensor), one a frame of
+        ``pcm`` (a corpus batch mixes the frames of many files).  Indices
+        of another length raise ``ValueError``."""
+        idx = torch.as_tensor(frame_indices)
+        if tuple(idx.shape) != (len(pcm),):
+            raise ValueError(f"frame indices of shape {tuple(idx.shape)} "
+                             f"for a batch of {len(pcm)} frames")
+        return self._run(pcm, idx)
+
+    def _run(self, pcm, index):
         arr = torch.as_tensor(pcm)
         if arr.dtype not in (torch.int16, torch.int32):
             raise TypeError(f"PCM must be int16 or int32, got {arr.dtype}")
@@ -505,23 +550,35 @@ class BatchEncoder:
             raise ValueError(f"PCM shape {tuple(arr.shape)} does not match "
                              f"[B, {self.config.channels}, "
                              f"{self.config.block_size}]")
-        return _encode_batch(self.config, arr.to(self.device), first_index,
-                             self._windows)
+        if self.sharding is None:
+            with on_device(self.device):
+                return _encode_batch(self.config, arr.to(self.device), index,
+                                     self._windows)
+        parts = []
+        for dev, lo, hi in self.sharding.parts(arr.shape[0]):
+            part_index = index + lo if isinstance(index, int) \
+                else index[lo:hi]
+            with on_device(dev):
+                parts.append(_encode_batch(self.config, arr[lo:hi].to(dev),
+                                           part_index,
+                                           self._part_windows[dev]))
+        return parts
 
-    def _drain(self, result: dict, valid: int, stats: dict | None,
+    def _drain(self, result, valid: int, stats: dict | None,
                pcm: np.ndarray | None = None, index0: int = 0,
                ) -> list[bytes]:
-        """Fetch one finished batch and cut its rows into frame bytes.
-        Under conformance, ``pcm`` is the batch's ``[B, C, N]`` PCM and
-        ``index0`` its first frame's index: each overflow frame (one the
-        packer cannot take) is the oracle encoder's instead, the same
-        bytes by the oracle's own parity, and a batch that holds one adds
-        only its frame bytes to ``stats``, as the JAX package's does."""
-        lens = result["length"][:valid].cpu().numpy()
+        """Fetch one finished batch (the parts of a sharded one in frame
+        order) and cut its rows into frame bytes.  Under conformance,
+        ``pcm`` is the batch's ``[B, C, N]`` PCM and ``index0`` its first
+        frame's index: each overflow frame (one the packer cannot take) is
+        the oracle encoder's instead, the same bytes by the oracle's own
+        parity, and a batch that holds one adds only its frame bytes to
+        ``stats``, as the JAX package's does."""
+        lens = _fetch(result, valid, "length")
         width = int(lens.max()) if valid else 0
-        data = result["bytes"][:valid, :width].cpu().numpy()
+        data = _fetch(result, valid, "bytes", width)
         frames = [data[i, :lens[i]].tobytes() for i in range(valid)]
-        over = (result["overflow"][:valid].cpu().numpy() if pcm is not None
+        over = (_fetch(result, valid, "overflow") if pcm is not None
                 else np.zeros(0, bool))
         if over.any():
             from flacx_torch.pipeline import _oracle_frame
@@ -536,12 +593,12 @@ class BatchEncoder:
                     + sum(map(len, frames))
             return frames
         if stats is not None:
-            kinds = result["kind"][:valid].cpu().numpy().ravel()
+            kinds = _fetch(result, valid, "kind").ravel()
             kh = stats.setdefault("subframe_kinds", {})
             for name, code in (("constant", 0), ("verbatim", 1),
                                ("fixed", 2), ("lpc", 3)):
                 kh[name] = kh.get(name, 0) + int((kinds == code).sum())
-            codes = result["channel_code"][:valid].cpu().numpy()
+            codes = _fetch(result, valid, "channel_code")
             mh = stats.setdefault("stereo_modes", {})
             for name, code in (("L/R", 1), ("L/S", 8), ("S/R", 9),
                                ("M/S", 10)):

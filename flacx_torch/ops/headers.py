@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from flacx_torch.format import encode_block_size_bits
@@ -24,6 +25,22 @@ SAMPLE_SIZE_FROM_STREAMINFO = 0b000
 _CN_THRESHOLDS = (7, 11, 16, 21, 26, 31)
 #: prefix byte leading-ones pattern per total size 1..7
 _CN_PREFIX = (0x00, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE)
+
+
+def frame_indices(frame_index, b: int, device: torch.device) -> torch.Tensor:
+    """Each frame's coded number, ``[b]`` int64 on ``device``: a scalar
+    ``frame_index`` is the first of ``b`` consecutive frames, a ``[b]``
+    array or tensor gives every frame its own (a corpus batch mixes the
+    frames of many files).  An array of another shape raises."""
+    if isinstance(frame_index, (torch.Tensor, np.ndarray)) \
+            and frame_index.ndim:
+        if tuple(frame_index.shape) != (b,):
+            raise ValueError(f"frame indices of shape "
+                             f"{tuple(frame_index.shape)} for a batch of "
+                             f"{b} frames")
+        return torch.as_tensor(frame_index).to(device, torch.int64)
+    return int(frame_index) + torch.arange(b, dtype=torch.int64,
+                                           device=device)
 
 
 class HeaderSymbols(NamedTuple):

@@ -52,7 +52,7 @@ def encode_chunks_to_file(f: BinaryIO, chunks, *, sample_rate: int,
                           device: str | torch.device = "cuda",
                           oracle: bool = False, wasted_bits: bool = False,
                           escapes: bool = True,
-                          order_search: str = "estimate",
+                          order_search: str = "estimate", sharding=None,
                           collect_stats: bool = False,
                           windows: tuple[str, ...] = ("tukey(0.5)",),
                           conformance: bool = False) -> dict:
@@ -62,9 +62,11 @@ def encode_chunks_to_file(f: BinaryIO, chunks, *, sample_rate: int,
     arrays of any sizes; peak memory is O(batch_frames · block_size)
     whatever the stream's length.  Pass ``total_samples=None`` for
     unknown-length streams; the true count is patched into STREAMINFO on
-    finalize.  Output bytes equal :func:`encode_to_file`'s.  Returns
-    ``samples``, ``frames``, ``bytes_in`` and ``bytes_out`` (and ``stats``
-    with ``collect_stats`` on the batched path).
+    finalize.  Output bytes equal :func:`encode_to_file`'s.  ``sharding``
+    splits each batch over a mesh's devices (:class:`flacx_torch.encoder.
+    BatchEncoder`), with the same bytes.  Returns ``samples``, ``frames``,
+    ``bytes_in`` and ``bytes_out`` (and ``stats`` with ``collect_stats``
+    on the batched path).
     """
     dev = resolve_device(device)
     if block_size < device_min_block_size(max_lpc_order):
@@ -118,7 +120,8 @@ def encode_chunks_to_file(f: BinaryIO, chunks, *, sample_rate: int,
             stereo=stereo, wasted_bits=wasted_bits, escapes=escapes,
             order_search=order_search, windows=windows,
             conformance=conformance)
-        enc = BatchEncoder(cfg, batch_frames=batch_frames, device=dev)
+        enc = BatchEncoder(cfg, batch_frames=batch_frames, device=dev,
+                           sharding=sharding)
         writer.write_frames(enc.encode_frame_stream(
             full_block_batches(), 0, stats=run_stats))
 
@@ -147,7 +150,7 @@ def encode_to_file(f: BinaryIO, pcm: np.ndarray, *, sample_rate: int,
                    stereo: str = "auto", device: str | torch.device = "cuda",
                    oracle: bool = False, wasted_bits: bool = False,
                    escapes: bool = True, order_search: str = "estimate",
-                   collect_stats: bool = False,
+                   sharding=None, collect_stats: bool = False,
                    windows: tuple[str, ...] = ("tukey(0.5)",),
                    conformance: bool = False) -> dict:
     """Encode interleaved PCM ``[frames, channels]`` into ``f`` (seekable):
@@ -159,7 +162,7 @@ def encode_to_file(f: BinaryIO, pcm: np.ndarray, *, sample_rate: int,
         total_samples=pcm.shape[0], batch_frames=batch_frames,
         stereo=stereo, device=device, oracle=oracle,
         wasted_bits=wasted_bits, escapes=escapes, order_search=order_search,
-        collect_stats=collect_stats, windows=windows,
+        sharding=sharding, collect_stats=collect_stats, windows=windows,
         conformance=conformance)
 
 

@@ -63,7 +63,7 @@ def test_encode_parser_has_flacx_options(fx_parser):
     assert {k: v for k, v in port.items() if k in fx} == fx
     subs = next(a for a in cli.make_argument_parser()._actions
                 if a.dest == "action").choices
-    assert set(subs) == {"encode", "decode"}
+    assert set(subs) == {"encode", "decode", "encode-corpus"}
 
 
 def wav_of(tmp_path, seed: int, samples: int, bps: int = 16,

@@ -1340,3 +1340,79 @@ def test_encode_past_24_bits_on_card(dev, bps, channels, order_search):
     stats = {}
     _, got = decoder.decode_array(f.getvalue(), device="cuda", stats=stats)
     assert np.array_equal(got, pcm) and not stats.get("host"), stats
+
+
+@pytest.mark.parametrize("bps,rate,channels", [
+    (16, 44100, 2), (16, 44100, 1), (24, 48000, 2), (24, 96000, 2)])
+def test_encode_batch_indexed_rows_independent_on_card(dev, bps, rate,
+                                                       channels):
+    """A corpus batch's frames do not depend on their batch neighbours or
+    on ``B``: frames of three signals mixed into one batch with per-frame
+    indices equal each frame encoded in another batch, of another size
+    and order (the corpus buckets' settings at block 4608)."""
+    from conftest import make_pcm
+
+    from flacx_torch.encoder import BatchEncoder
+    n = 4608
+    rng = np.random.default_rng(bps + channels)
+    blocks = np.concatenate([
+        make_pcm(rng, 4 * n, channels, bps, kind).reshape(4, n, channels)
+        for kind in ("tonal", "noise", "impulse")]).transpose(0, 2, 1)
+    blocks = np.ascontiguousarray(blocks.astype(np.int32))
+    idx = np.tile(np.arange(4, dtype=np.int64), 3) + np.repeat(
+        np.array([0, 70_000, 1 << 21], np.int64), 4)
+    cfg = EncoderConfig(sample_rate=rate, bps=bps, channels=channels,
+                        block_size=n)
+    enc = BatchEncoder(cfg, batch_frames=12)
+    whole = enc._drain(enc.encode_batch_indexed(blocks, idx), 12, None)
+    perm = rng.permutation(12)
+    for lo, hi in ((0, 5), (5, 12)):
+        sel = perm[lo:hi]
+        part = enc._drain(enc.encode_batch_indexed(blocks[sel], idx[sel]),
+                          hi - lo, None)
+        assert part == [whole[i] for i in sel]
+    one = enc._drain(enc.encode_batch_device(blocks[7:8], int(idx[7])), 1,
+                     None)
+    assert one == [whole[7]]
+
+
+def test_sharded_encode_and_decode_on_card(dev):
+    """A mesh of two ``cuda:0`` entries: ``BatchEncoder`` writes the
+    unsharded frames, and ``decode_array`` gives the PCM bit for bit on
+    the device route at a batch that divides the mesh and one that does
+    not."""
+    import io
+
+    from conftest import make_pcm
+
+    from flacx_torch import decoder, pipeline
+    from flacx_torch.encoder import BatchEncoder
+    from flacx_torch.parallel import data_mesh, frame_sharding
+    sh = frame_sharding(data_mesh(devices=("cuda:0", "cuda:0")))
+    n = 1152
+    pcm = make_pcm(np.random.default_rng(9), 9 * n, 2, 16)
+    blocks = np.ascontiguousarray(
+        pcm.reshape(9, n, 2).transpose(0, 2, 1).astype(np.int16))
+    cfg = EncoderConfig(block_size=n)
+    want = BatchEncoder(cfg, 4).encode_frames(blocks, 2)
+    enc = BatchEncoder(cfg, 4, sharding=sh)
+    assert [len(p["length"]) for p in enc.encode_batch_device(blocks, 0)] \
+        == [5, 4]
+    assert enc.encode_frames(blocks, 2) == want
+    kw = dict(sample_rate=44100, bps=16, channels=2, block_size=n,
+              max_lpc_order=12, qlp_precision=5,
+              partition_orders=(0, 1, 2, 3, 4, 5), batch_frames=4)
+    a, b = io.BytesIO(), io.BytesIO()
+    pipeline.encode_to_file(a, pcm, sharding=sh, **kw)
+    pipeline.encode_to_file(b, pcm, **kw)
+    assert a.getvalue() == b.getvalue()
+    for batch in (4, 3):
+        stats = {}
+        _, got = decoder.decode_array(a.getvalue(), batch_frames=batch,
+                                      stats=stats, sharding=sh)
+        assert np.array_equal(got, pcm)
+        assert stats == {"device": -(-9 // batch)}
+    with pytest.raises(ValueError, match="conflicts"):
+        BatchEncoder(cfg, 4, device="cpu", sharding=sh)
+    with pytest.raises(RuntimeError, match="visible"):
+        data_mesh(torch.cuda.device_count() + 1)

@@ -7,6 +7,8 @@ to block 1024 (``tests/test_device_encoder.py::test_hires_config``) for
 stereo, six channels and qlp precision 15.  The port's plain path must
 write the same bytes as ``flacx.encoder._encode_batch`` wherever the two
 chose the same coefficients, and every frame must decode bit-exactly.
+One stereo frame at the configuration's own block, 16384, is byte-equal
+to flacx's.
 """
 
 import dataclasses
@@ -219,3 +221,19 @@ def test_batch_encoder_takes_hires_on_the_cpu():
     direct = frames_of(_encode_batch(cfg, torch.from_numpy(pcm), 0))
     enc = BatchEncoder(cfg, batch_frames=2, device="cpu")
     assert enc.encode_frames(pcm, 0) == direct
+
+
+def test_block_16384_frame_equals_flacx():
+    """One stereo 24-bit frame at the hi-res configuration's own block,
+    16384 (LPC order 32, partition orders 0..15), byte-equal to flacx's."""
+    n = 16384
+    fx_cfg = FxConfig(**dict(HIRES, block_size=n))
+    pcm = make_pcm(np.random.default_rng(16), n, 2, 24, "tonal")
+    planar = np.ascontiguousarray(pcm.reshape(1, n, 2).transpose(0, 2, 1))
+    ref = jax.jit(functools.partial(fx_encode_batch, fx_cfg))(
+        jnp.asarray(planar), jnp.int64(7))
+    out = _encode_batch(config_from_flacx(dataclasses.asdict(fx_cfg)),
+                        torch.from_numpy(planar), 7)
+    assert frames_of(out) == frames_of({k: np.asarray(v)
+                                        for k, v in ref.items()})
+    np.testing.assert_array_equal(out["kind"].numpy(), [[3, 3]])

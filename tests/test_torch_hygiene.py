@@ -44,11 +44,20 @@ def test_port_imports_with_jax_and_flacx_blocked():
             "    importlib.import_module(m.name)\n"
             "import flacx_torch.encoder, flacx_torch.cli, "
             "flacx_torch.pipeline, flacx_torch.stream, chip_smoke\n"
+            "import flacx_torch.parallel.corpus, flacx_torch.parallel.mesh\n"
+            "assert 'flacx_torch.parallel.corpus' in sys.modules\n"
             "assert 'jax' not in {k.split('.')[0] for k, v in "
             "sys.modules.items() if v is not None}\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    env=env, timeout=120)
+
+
+def test_source_scan_covers_the_parallel_package():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"flacx_torch/parallel/__init__.py",
+            "flacx_torch/parallel/mesh.py",
+            "flacx_torch/parallel/corpus.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
