@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine CUDA kernel libraries from ``flacx_torch/kernels/csrc``
+Builds the ten CUDA kernel libraries from ``flacx_torch/kernels/csrc``
 and runs these paths on the card, the encodes through ``BatchEncoder``:
 
 * the headline encode, 16-bit stereo: one 1024-frame batch at block
@@ -61,6 +61,29 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   run after one output is deleted and one input touched re-encodes
   exactly those two; the wall, files/s, samples/s, x realtime, batches
   per bucket and the oracle tails' share printed;
+* sequence sharding (``seqshard``, ``BASELINE.json`` configs[2]'s long
+  blocks): the hi-res stereo PCM as 256 rows of 16384 and 128 rows of
+  32768 samples (24-bit), windowed by Tukey(0.5) in f32, with order-1..32
+  taps from the port's Levinson and quantization; each mode of the
+  ``seqshard`` kernel held against its plain version (rows
+  ``seq_<mode>@seq16k`` / ``@seq32k``, the autocorrelation beside a
+  grouped f64 ``conv1d``), then ``autocorrelate_sharded``,
+  ``fixed_order_zz_sums_sharded`` and ``lpc_zz_stats_sharded`` on
+  ``seq_mesh(1, 2)``, ``(1, 8)`` and ``(2, 4)`` over repeated ``cuda:0``
+  (counted), equal to ``analysis``'s fixed sums and the wide
+  ``lpc_residual_stats`` exactly and to ``analysis``'s autocorrelation
+  within 1e-12, their walls beside the unsharded kernels';
+* the multi-process corpus (``distributed``): two fresh interpreters
+  (``chip_smoke.py --distributed-worker``) join a gloo group on
+  ``127.0.0.1`` and each runs ``encode_corpus_distributed`` of the
+  sharded phase's 20-file corpus on ``cuda:0`` into one output directory:
+  disjoint stripes that make up the corpus, both ranks' totals equal to a
+  one-process ``encode_corpus`` on the card, every file byte-equal to it,
+  a resumed run that reads both manifest shards and skips every file,
+  every output decoded bit-exactly on the card; the two-process wall
+  beside the one-process wall;
+* the dry run (``dryrun``): ``parallel.dryrun.dryrun_multichip`` on four
+  ``cuda:0`` entries, counted, with its summary line;
 * frame sharding (``sharded``), last: meshes of every visible card and of
   two ``cuda:0`` entries; the headline batch through
   ``BatchEncoder(sharding=...)``, a 20 s excerpt through
@@ -85,9 +108,12 @@ path, ``<kernel>@conformance`` in conformance mode, ``<mode>@hibps28``
 / ``<mode>@hibps32`` and ``lpc_allorder@best32`` past 24 bits,
 ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires`` /
 ``<mode>@hires6`` on the hi-res ones, ``<mode>@corpus96k`` and
-``<mode>@corpus_mono`` on the corpus's 24-bit/96 kHz and mono batches;
+``<mode>@corpus_mono`` on the corpus's 24-bit/96 kHz and mono batches,
+``seq_<mode>@seq16k`` / ``@seq32k`` on the sequence-sharding rows;
 ``launches`` counts the launches of that path's counted encode, which
-runs ``batches`` batches), the card's name and power limit, and as its
+runs ``batches`` batches; for the ``seq_`` rows the launches of the
+three sharded functions on the three meshes), the card's name and power
+limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without CUDA it exits 1 and prints no result.
 """
@@ -555,8 +581,11 @@ def launch_counts() -> dict:
     from flacx_torch.kernels import (analysis, bit_unpack, crc16_rows,
                                      frame_pack, lpc_allorder, lpc_residual,
                                      reconstruct, reference_analysis,
-                                     rice_stats)
+                                     rice_stats, seqshard)
     return {
+        "seq_autocorr": seqshard.seq_autocorr,
+        "seq_fixed": seqshard.seq_fixed,
+        "seq_lpc": seqshard.seq_lpc,
         "reference_lpc": reference_analysis.reference_lpc,
         "abs_residual_sums": reference_analysis.abs_residual_sums,
         "bit_unpack": bit_unpack.bit_unpack,
@@ -2242,6 +2271,359 @@ def corpus_phase(torch) -> list[dict]:
     return rows
 
 
+#: the sequence-sharding phase (``seqshard``): the hi-res stereo PCM of
+#: :data:`SEQ_FRAMES` frames of 16384 cut into blocks of each size (two
+#: rows a block: 256 x 16384 and 128 x 32768), lags and taps up to 32, the
+#: meshes ``(n_data, n_seq)`` of repeated ``cuda:0`` entries the sharded
+#: functions run on, and the shards of the kernels' held launch (that of
+#: ``seq_mesh(1, 8)``)
+SEQ_BLOCKS = {"seq16k": 16384, "seq32k": 32768}
+SEQ_FRAMES, SEQ_LAGS, SEQ_HOLD_SHARDS = 128, 32, 8
+SEQ_MESHES = ((1, 2), (1, 8), (2, 4))
+SEQ_PATH = ("seq_autocorr", "seq_fixed", "seq_lpc")
+SEQ_SOURCE = "flacx_torch/kernels/csrc/seqshard.cu"
+
+
+def seq_autoc_close(torch, a, b):
+    """Autocorrelation sums ``[..., lags]`` (a shard's partials or a
+    row's): f64 sums of the same products in another order, within rtol
+    1e-12 or 1e-12 of the lag-0 sum near zero (the error is under
+    n·eps64 of the sum of |products|, which the lag-0 sum bounds)."""
+    err = (a - b).abs()
+    tol = 1e-12 * b.abs() + 1e-12 * b[..., :1].abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError("seq_autocorr out of tolerance: max err "
+                             f"{err.max().item()}")
+    return float(err.max().item())
+
+
+def seq_autocorr_library_ms(torch, xw, max_lag: int, want) -> float | None:
+    """One grouped f64 ``conv1d`` of the windowed rows (a yardstick, never
+    on the path): ``autoc[l] = Σ_j u[j]·u[j+l]``, ``u`` the rows without
+    their last sample, padded with ``max_lag`` zeros for the input.  Its
+    products are exact in f64 where the kernel's round to f32: held
+    against ``want`` (the kernel's sums) within 1e-6 of (|want| +
+    |autoc[0]|).  Returns its median ms, or None where cuDNN refuses the
+    shape (printed)."""
+    rows = xw.shape[0]
+    u = xw.double()[:, :-1].reshape(rows, 1, -1)
+    u_pad = torch.nn.functional.pad(u, (0, max_lag)).reshape(1, rows, -1)
+
+    def conv():
+        return torch.nn.functional.conv1d(u_pad, u, groups=rows)
+    try:
+        got = conv().reshape(rows, max_lag + 1)
+    except RuntimeError as e:
+        print(f"conv1d yardstick refused at {tuple(u.shape)}: {e}",
+              flush=True)
+        return None
+    err = (got - want).abs()
+    if not bool((err <= 1e-6 * (want.abs() + want[:, :1].abs())).all()):
+        raise AssertionError("conv1d yardstick out of tolerance: max err "
+                             f"{err.max().item()}")
+    ms = median_ms(torch, conv, 10)
+    print(f"conv1d yardstick {tuple(u.shape)}: {ms:.4f} ms, max err "
+          f"{err.max().item()}", flush=True)
+    return ms
+
+
+def seq_inputs(torch, pcm: np.ndarray, n: int) -> dict:
+    """The rows of block ``n`` on the card: int32 ``x [rows, n]``, the
+    Tukey(0.5) window and the windowed rows in f32, and each row's
+    order-``1 + row % 32`` taps and shift from the port's Levinson and
+    quantization of its ``analysis`` autocorrelation (the hi-res
+    configuration's precision)."""
+    from flacx_torch.kernels import analysis as k_an
+    from flacx_torch.ops.lpc import (levinson_all_orders,
+                                     quantize_all_orders, tukey_window_np)
+
+    cfg = hires_config(2)
+    x = torch.from_numpy(blocks_of(pcm, n, np.int32).reshape(-1, n)).cuda()
+    window = torch.from_numpy(tukey_window_np(n).astype(np.float32)).cuda()
+    autoc, fsums = k_an.analysis(x, window, SEQ_LAGS, cfg.eff_bps)
+    taps_f, _, _ = levinson_all_orders(autoc, SEQ_LAGS)
+    qcoefs, shifts, _ = quantize_all_orders(-taps_f, cfg.qlp_precision)
+    rows = torch.arange(len(x), device=x.device)
+    order = 1 + rows % SEQ_LAGS
+    return {"x": x, "window": window, "xw": x.float() * window,
+            "taps": qcoefs[rows, order - 1].contiguous(),
+            "shift": shifts[rows, order - 1].contiguous(),
+            "order": order.to(torch.int32), "autoc": autoc, "fsums": fsums,
+            "eff_bps": cfg.eff_bps, "sum_taps_max": cfg.sum_taps_max}
+
+
+def seq_block(torch, label: str, inp: dict) -> list[dict]:
+    """One block size: each kernel mode held against its plain version at
+    ``seq_mesh(1, 8)``'s launch, then the sharded functions on every mesh
+    of :data:`SEQ_MESHES` (counted) against the main path's kernels on the
+    same unsharded rows, and their walls."""
+    from flacx_torch.kernels import analysis as k_an
+    from flacx_torch.kernels import lpc_allorder as k_la
+    from flacx_torch.kernels import lpc_residual as k_lr
+    from flacx_torch.kernels import seqshard as k_seq
+    from flacx_torch.parallel import seqshard
+
+    x, window, xw, taps, shift, order = (
+        inp[k] for k in ("x", "window", "xw", "taps", "shift", "order"))
+    rows_n, n = x.shape
+    s, lags = SEQ_HOLD_SHARDS, SEQ_LAGS
+    products = rows_n * sum(n - 1 - lag for lag in range(lags + 1))
+    rows = [
+        kernel_row(torch, f"seq_autocorr@{label}", "seq_autocorr_kernel",
+                   k_seq.seq_autocorr, k_seq.seq_autocorr_plain,
+                   (xw, lags, s), seq_autoc_close,
+                   [(products, F64_OPS_PER_S), (products, SCALAR_OPS_PER_S)],
+                   SEQ_SOURCE, "flacx/parallel/seqshard.py:47-67"),
+        # about 35 integer operations a sample: 10 differences, 5 zigzags
+        # of 3, 5 masked 64-bit adds of 2
+        kernel_row(torch, f"seq_fixed@{label}", "seq_fixed_kernel",
+                   k_seq.seq_fixed, k_seq.seq_fixed_plain, (x, s), exact,
+                   [(x.numel() * 35, SCALAR_OPS_PER_S)], SEQ_SOURCE,
+                   "flacx/parallel/seqshard.py:110-121"),
+        # the int64 MAC counted as lpc_residual's wide MAC: 8-bit limb
+        # products of the nonzero taps at the int8 tensor rate, and twelve
+        # scalar operations a sample
+        kernel_row(torch, f"seq_lpc@{label}", "seq_lpc_kernel",
+                   k_seq.seq_lpc, k_seq.seq_lpc_plain,
+                   (x, taps, shift, order, s), exact,
+                   [(limb_ops(n, taps, k_la.sample_limbs(inp["eff_bps"])),
+                     INT8_TENSOR_OPS_PER_S),
+                    (x.numel() * 12, SCALAR_OPS_PER_S)], SEQ_SOURCE,
+                   "flacx/parallel/seqshard.py:152-167")]
+    rows[0]["library_ms"] = seq_autocorr_library_ms(
+        torch, xw, lags, k_seq.seq_autocorr(xw, lags, s).sum(1))
+    time_rows(torch, rows)
+
+    # the main path's kernels on the unsharded rows
+    want_ac, want_fs = inp["autoc"], inp["fsums"]
+    want_zz, want_mx = k_lr.lpc_residual_stats(
+        x, taps, shift, order, inp["eff_bps"], inp["sum_taps_max"])
+    assert k_lr.mac_width(inp["eff_bps"], inp["sum_taps_max"]) == "wide"
+    below = want_mx < (1 << 31) - 1
+    meshes = {m: seqshard.seq_mesh(*m, devices=("cuda:0",) * (m[0] * m[1]))
+              for m in SEQ_MESHES}
+    calls = {
+        "autocorrelate_sharded": lambda mesh: seqshard.autocorrelate_sharded(
+            xw, lags, mesh),
+        "fixed_order_zz_sums_sharded":
+            lambda mesh: seqshard.fixed_order_zz_sums_sharded(x, mesh),
+        "lpc_zz_stats_sharded": lambda mesh: seqshard.lpc_zz_stats_sharded(
+            x, taps, shift, order, mesh)}
+
+    def run_all():
+        return {(m, name): fn(mesh) for m, mesh in meshes.items()
+                for name, fn in calls.items()}
+    outs, counts = counted_run(run_all, SEQ_PATH)
+    torch.cuda.synchronize()
+    for m in SEQ_MESHES:
+        # the same f32 products as analysis, f64 sums in another order
+        seq_autoc_close(torch, outs[m, "autocorrelate_sharded"], want_ac)
+        exact(torch, outs[m, "fixed_order_zz_sums_sharded"], want_fs)
+        zz, mx = outs[m, "lpc_zz_stats_sharded"]
+        exact(torch, zz, want_zz)
+        exact(torch, mx[below], want_mx[below].long())
+        if not bool((mx[~below] >= (1 << 31) - 1).all()):
+            raise AssertionError(f"{label} {m}: max |res| under the clamp")
+
+    def wall_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    eff, stm = inp["eff_bps"], inp["sum_taps_max"]
+    an_ms = wall_ms(lambda: k_an.analysis(x, window, lags, eff))
+    lr_ms = wall_ms(lambda: k_lr.lpc_residual_stats(x, taps, shift, order,
+                                                    eff, stm))
+    text = [f"unsharded analysis {an_ms:.3f} ms, lpc_residual_stats "
+            f"{lr_ms:.3f} ms"]
+    for m, mesh in meshes.items():
+        text.append(f"seq_mesh{m}: " + ", ".join(
+            f"{name} {wall_ms(lambda: fn(mesh)):.3f} ms"
+            for name, fn in calls.items()))
+    print(f"{label}: {rows_n} rows x {n}; sharded on seq_mesh {SEQ_MESHES} "
+          f"over cuda:0 equal to analysis (fixed sums exact, "
+          f"autocorrelation within 1e-12) and lpc_residual_stats (exact; "
+          f"{int((~below).sum())} rows past its clamp); launches "
+          f"{used(counts)}; walls: {'; '.join(text)}", flush=True)
+    for row, name in zip(rows, SEQ_PATH):
+        row["launches"], row["batches"] = counts[name], 1
+    return rows
+
+
+def seqshard_phase(torch) -> list[dict]:
+    """Sequence sharding at the hi-res sizes (:data:`SEQ_BLOCKS`)."""
+    pcm = hires_pcm(2, SEQ_FRAMES)
+    rows = []
+    for label, n in SEQ_BLOCKS.items():
+        rows += seq_block(torch, label, seq_inputs(torch, pcm, n))
+    return rows
+
+
+#: seconds a rank of the ``distributed`` phase may take
+WORKER_TIMEOUT = 300
+
+
+def distributed_worker(port: str, rank: str, root: str) -> int:
+    """One rank of the ``distributed`` phase (``chip_smoke.py
+    --distributed-worker <port> <rank> <dir>``): joins the two-process
+    group on the card, encodes its stripe of ``<dir>/in`` into
+    ``<dir>/two`` and writes what the parent checks to
+    ``<dir>/rank<rank>.json``."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from flacx_torch.parallel import (encode_corpus_distributed,
+                                      global_data_mesh, init_distributed,
+                                      shard_corpus)
+
+    rank_i = int(rank)
+    assert init_distributed(f"127.0.0.1:{port}", 2, rank_i,
+                            device="cuda") == (rank_i, 2)
+    try:
+        mesh = global_data_mesh()
+        paths = sorted(Path(root, "in").glob("*.wav"))
+        t0 = time.perf_counter()
+        result, totals = encode_corpus_distributed(
+            paths, Path(root, "two"), batch_frames=CORPUS_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        Path(root, f"rank{rank}.json").write_text(json.dumps({
+            "mine": [p.name for p in shard_corpus(paths)],
+            "encoded": sorted(p.name for p in result.encoded),
+            "failed": result.failed, "totals": totals, "wall": wall,
+            "mesh": [[r, str(d)] for r, d in mesh.devices]}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(root) -> tuple[float, list[str]]:
+    """The two ranks as fresh interpreters (never a fork of this process,
+    which holds a CUDA context), each killed past :data:`WORKER_TIMEOUT`;
+    a port taken between its probe and the group's bind is retried once.
+    Returns their wall and outputs; a rank that fails raises."""
+    import os
+    import socket
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here))
+    for attempt in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(here / "chip_smoke.py"),
+             "--distributed-worker", str(port), str(rank), str(root)],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                outs.append(p.communicate()[0])
+        wall = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if codes == [0, 0]:
+            return wall, outs
+        if attempt == 0 and any("EADDRINUSE" in o or "in use" in o
+                                for o in outs):
+            continue
+        raise AssertionError(f"distributed: ranks exited {codes}:\n"
+                             + "\n".join(outs))
+    raise AssertionError("unreachable")
+
+
+def distributed_phase(torch) -> None:
+    """``encode_corpus_distributed`` across two processes on the one card
+    over the sharded phase's corpus, into one output directory: disjoint
+    stripes whose union is the corpus, both ranks' totals equal to a
+    one-process ``encode_corpus`` on the card, every file byte-equal to
+    it, a resumed run that reads both manifest shards and skips every
+    file, every output decoded bit-exactly on the device route."""
+    import tempfile
+    from pathlib import Path
+
+    from flacx_torch.parallel.corpus import encode_corpus
+
+    t_phase = time.perf_counter()
+    inputs = corpus_inputs(SHARDED_FILES, SEED + 21)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_corpus(Path(tmp, "in"), inputs)
+        t0 = time.perf_counter()
+        one = encode_corpus(paths, Path(tmp, "one"), batch_frames=CORPUS_BATCH)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        wall, _ = run_ranks(tmp)
+        ranks = [json.loads(Path(tmp, f"rank{k}.json").read_text())
+                 for k in (0, 1)]
+        names = [p.name for p in paths]
+        mine = [r["mine"] for r in ranks]
+        if set(mine[0]) & set(mine[1]) or sorted(sum(mine, [])) != names:
+            raise AssertionError(f"distributed: stripes {mine}")
+        want = {"bytes_in": float(one.bytes_in),
+                "bytes_out": float(one.bytes_out),
+                "failed": float(len(one.failed)),
+                "files": float(len(one.encoded)),
+                "samples": float(one.samples)}
+        if any(r["totals"] != want or r["failed"] for r in ranks):
+            raise AssertionError(f"distributed: totals {ranks}, one "
+                                 f"process {want}")
+        two = Path(tmp, "two")
+        shards = sorted(p.name for p in two.glob(".flacx_manifest*.json"))
+        if shards != [".flacx_manifest.p0.json", ".flacx_manifest.p1.json"]:
+            raise AssertionError(f"distributed: manifest shards {shards}")
+        for p in one.encoded:
+            if (two / p.name).read_bytes() != p.read_bytes():
+                raise AssertionError(f"distributed: {p.name} differs from "
+                                     "the one-process encode")
+        t0 = time.perf_counter()
+        again = encode_corpus(paths, two, batch_frames=CORPUS_BATCH,
+                              resume=True)
+        resume_wall = time.perf_counter() - t0
+        if again.encoded or len(again.skipped) != len(paths):
+            raise AssertionError(f"distributed: resume encoded "
+                                 f"{again.encoded}")
+        routes = {}
+        for i, (bps, rate, _, pcm) in enumerate(inputs):
+            for k, v in check_corpus_file(
+                    (two / f"f{i:04d}.flac").read_bytes(), bps, rate, pcm,
+                    f"distributed file {i}").items():
+                routes[k] = routes.get(k, 0) + v
+    print(f"distributed: {SHARDED_FILES} WAVs over 2 processes (gloo, both "
+          f"on cuda:0, global mesh {ranks[0]['mesh']}), stripes of "
+          f"{len(mine[0])} / {len(mine[1])} files, totals {want} on both "
+          f"ranks and equal to one process; every file byte-equal to the "
+          f"one-process encode; resume skipped {len(again.skipped)} files "
+          f"in {resume_wall:.3f} s; every output decoded bit-exactly on the "
+          f"card, routes {routes}; walls: one process {one_wall:.3f} s, two "
+          f"processes {wall:.3f} s from launch (encode in the ranks "
+          f"{ranks[0]['wall']:.3f} / {ranks[1]['wall']:.3f} s); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def dryrun_phase() -> None:
+    """``dryrun_multichip`` on a mesh of four ``cuda:0`` entries, counted."""
+    from flacx_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    _, counts = counted_run(
+        lambda: dryrun_multichip(4, devices=("cuda:0",) * 4),
+        HEADLINE_SPIES + DECODE_PATH + ("seq_autocorr",))
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{used(counts)}", flush=True)
+
+
 def sharded_phase(torch, pcm: np.ndarray, headline: tuple) -> None:
     """``sharding=`` on a mesh of every visible card and on one of two
     ``cuda:0`` entries: the headline batch through ``BatchEncoder``
@@ -2349,6 +2731,8 @@ def sharded_phase(torch, pcm: np.ndarray, headline: tuple) -> None:
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--distributed-worker"]:
+        return distributed_worker(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2382,6 +2766,11 @@ def main() -> int:
     del streams
     rows += file_phase(torch)
     rows += corpus_phase(torch)
+    t0 = time.perf_counter()
+    rows += seqshard_phase(torch)
+    print(f"seqshard phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    distributed_phase(torch)
+    dryrun_phase()
     # last: it takes no profiler trace
     sharded_phase(torch, pcm, headline)
 

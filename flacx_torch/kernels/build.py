@@ -26,7 +26,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parents[1] / "_build"
 KERNELS = ("analysis", "lpc_residual", "lpc_allorder", "rice_stats",
            "frame_pack", "bit_unpack", "reconstruct", "crc16_rows",
-           "reference_analysis")
+           "reference_analysis", "seqshard")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -96,6 +96,14 @@ class FrameSharding:
     """The leading (frame) axis split over ``mesh`` in contiguous parts."""
     mesh: Mesh
 
+    def __post_init__(self):
+        if not isinstance(self.mesh, Mesh):
+            raise TypeError(
+                f"sharding= takes a Mesh of this process's devices, not a "
+                f"{type(self.mesh).__name__}: one process cannot launch on "
+                f"another process's card (a process-spanning mesh's "
+                f".local is this process's Mesh)")
+
     def divides(self, frames: int) -> bool:
         return frames % self.mesh.size == 0
 

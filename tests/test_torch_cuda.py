@@ -1416,3 +1416,93 @@ def test_sharded_encode_and_decode_on_card(dev):
         BatchEncoder(cfg, 4, device="cpu", sharding=sh)
     with pytest.raises(RuntimeError, match="visible"):
         data_mesh(torch.cuda.device_count() + 1)
+
+
+def autoc_ok(got, want) -> bool:
+    """f64 sums of the same products in another order: within rtol 1e-12,
+    or 1e-12 of the lag-0 sum near zero."""
+    tol = 1e-12 * want.abs() + 1e-12 * want[..., :1].abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("n,n_seq,bits", [(16384, 8, 24), (32768, 2, 24),
+                                          (32768, 1, 24), (1000, 5, 17),
+                                          (4100, 41, 32)])
+def test_seqshard_kernel_modes(dev, n, n_seq, bits):
+    """Each mode against its plain version at the hi-res shapes and at
+    tiles that end mid-shard, with spans cut at a shard edge and their
+    halos passed in: integers exact, the autocorrelation within
+    :func:`autoc_ok`."""
+    from flacx_torch.kernels import seqshard as k_seq
+    x = torch.from_numpy(rows(11, 6, n, bits)).to(dev)
+    w = torch.rand(n, generator=torch.Generator().manual_seed(n)).to(dev)
+    rng = np.random.default_rng(n)
+    t = min(32, n // n_seq)
+    taps = torch.from_numpy(rng.integers(-2 ** 14, 2 ** 14, (6, t))
+                            .astype(np.int32)).to(dev)
+    shift = torch.from_numpy(rng.integers(0, 16, 6).astype(np.int32)).to(dev)
+    order = torch.from_numpy(rng.integers(0, t + 1, 6).astype(np.int32)
+                             ).to(dev)
+    lag = min(32, n // n_seq)
+    for xw in ((x.float() * w), x.double() * w.double()):
+        got = k_seq.seq_autocorr(xw, lag, n_seq)
+        assert autoc_ok(got, k_seq.seq_autocorr_plain(xw, lag, n_seq))
+    for xi in (x, x.long()):
+        assert torch.equal(k_seq.seq_fixed(xi, n_seq),
+                           k_seq.seq_fixed_plain(xi, n_seq))
+    for a, b in zip(k_seq.seq_lpc(x, taps, shift, order, n_seq),
+                    k_seq.seq_lpc_plain(x, taps, shift, order, n_seq)):
+        assert torch.equal(a, b)
+    if n_seq < 2:
+        return
+    cut = (n // n_seq) * (n_seq // 2)
+    head, tail = x[:, :cut].contiguous(), x[:, cut:].contiguous()
+    k = n_seq // 2
+    xw = (x.float() * w)
+    parts = [k_seq.seq_autocorr(xw[:, :cut].contiguous(), lag, k,
+                                halo=xw[:, cut:cut + lag].contiguous(), n=n),
+             k_seq.seq_autocorr(xw[:, cut:].contiguous(), lag, n_seq - k,
+                                shard0=k, n=n)]
+    assert autoc_ok(torch.cat(parts, 1),
+                    k_seq.seq_autocorr_plain(xw, lag, n_seq))
+    parts = [k_seq.seq_fixed(head, k),
+             k_seq.seq_fixed(tail, n_seq - k, halo=x[:, cut - 4:cut]
+                             .contiguous(), shard0=k)]
+    assert torch.equal(torch.cat(parts, 1), k_seq.seq_fixed_plain(x, n_seq))
+    want = k_seq.seq_lpc_plain(x, taps, shift, order, n_seq)
+    parts = [k_seq.seq_lpc(head, taps, shift, order, k),
+             k_seq.seq_lpc(tail, taps, shift, order, n_seq - k,
+                           halo=x[:, cut - t:cut].contiguous(), shard0=k)]
+    for j in range(2):
+        assert torch.equal(torch.cat([p[j] for p in parts], 1), want[j])
+    torch.cuda.synchronize()
+
+
+def test_seqshard_sharded_functions_on_card(dev):
+    """The sharded functions on meshes of repeated ``cuda:0`` entries equal
+    the unsharded kernels: ``analysis``'s fixed sums and the wide
+    ``lpc_residual_stats`` exactly (the max below its clamp), its f32
+    autocorrelation within :func:`autoc_ok`."""
+    from flacx_torch.kernels import lpc_residual as k_lr
+    from flacx_torch.parallel import seqshard
+    n = 16384
+    x = torch.from_numpy(rows(12, 8, n, 24)).to(dev)
+    w = torch.rand(n, generator=torch.Generator().manual_seed(3)).to(dev)
+    rng = np.random.default_rng(3)
+    taps = torch.from_numpy(rng.integers(-16, 16, (8, 32)).astype(np.int32)
+                            ).to(dev)
+    shift = torch.full((8,), 4, dtype=torch.int32, device=dev)
+    order = torch.from_numpy(rng.integers(1, 33, 8).astype(np.int32)).to(dev)
+    autoc, fsums = k_an.analysis(x, w, 32)
+    lzz, maxabs = k_lr.lpc_residual_stats(x, taps, shift, order, 25,
+                                          32 << 4)
+    for nd, ns in ((1, 2), (1, 8), (2, 4)):
+        mesh = seqshard.seq_mesh(nd, ns, devices=("cuda:0",) * (nd * ns))
+        assert torch.equal(seqshard.fixed_order_zz_sums_sharded(x, mesh),
+                           fsums)
+        zz, mx = seqshard.lpc_zz_stats_sharded(x, taps, shift, order, mesh)
+        assert torch.equal(zz, lzz)
+        below = maxabs < 2 ** 31 - 1
+        assert torch.equal(mx[below], maxabs[below].long())
+        assert autoc_ok(seqshard.autocorrelate_sharded(x.float() * w, 32,
+                                                       mesh), autoc)

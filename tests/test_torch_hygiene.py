@@ -45,6 +45,10 @@ def test_port_imports_with_jax_and_flacx_blocked():
             "import flacx_torch.encoder, flacx_torch.cli, "
             "flacx_torch.pipeline, flacx_torch.stream, chip_smoke\n"
             "import flacx_torch.parallel.corpus, flacx_torch.parallel.mesh\n"
+            "import flacx_torch.parallel.distributed\n"
+            "import flacx_torch.parallel.seqshard\n"
+            "import flacx_torch.parallel.dryrun\n"
+            "import flacx_torch.kernels.seqshard\n"
             "assert 'flacx_torch.parallel.corpus' in sys.modules\n"
             "assert 'jax' not in {k.split('.')[0] for k, v in "
             "sys.modules.items() if v is not None}\n")
@@ -57,7 +61,12 @@ def test_source_scan_covers_the_parallel_package():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"flacx_torch/parallel/__init__.py",
             "flacx_torch/parallel/mesh.py",
-            "flacx_torch/parallel/corpus.py"} <= names
+            "flacx_torch/parallel/corpus.py",
+            "flacx_torch/parallel/distributed.py",
+            "flacx_torch/parallel/seqshard.py",
+            "flacx_torch/parallel/dryrun.py",
+            "flacx_torch/kernels/seqshard.py",
+            "flacx_torch/kernels/csrc/seqshard.cu"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

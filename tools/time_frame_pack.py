@@ -5,10 +5,12 @@ more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
         [--kernel {analysis,frame_pack,lpc_allorder,lpc_residual_res,
                    lpc_residual_stats,lpc_residual_zz,rice_stats,
-                   bit_unpack,reconstruct,crc16_rows} ...]
+                   bit_unpack,reconstruct,crc16_rows,seq_autocorr,
+                   seq_fixed,seq_lpc} ...]
         [--path {headline,best4608,best2304,best1152,hires,hires6,
                  file_default,file_b1152,file_best24,decode_headline,
-                 decode_fixed,decode_hires,decode_hires6} ...]
+                 decode_fixed,decode_hires,decode_hires6,seq16k,
+                 seq32k} ...]
 
 Encodes one batch of each encode path (the data of ``chip_smoke.py``:
 the 1024-frame headline batch at block 4608; the best-compression batch
@@ -29,7 +31,10 @@ once for every window time the same work).  The decode paths
 frames or with fixed predictors only, the hi-res stereo or 5.1 frames)
 with ``decoder.decode_array`` at 256 frames a batch and time
 ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` on the arguments of
-their first launch.  A kernel the path does not run gets ``null``.  Run
+their first launch.  The sequence-sharding paths (``seq16k``,
+``seq32k``) time the ``seqshard`` kernel's modes on the rows of
+``chip_smoke.py``'s ``seqshard`` phase at ``seq_mesh(1, 8)``'s launch.
+A kernel the path does not run gets ``null``.  Run
 it on two checkouts in one call (A, B, B, A) to compare two versions of
 a kernel at these shapes.  Defaults: ``frame_pack`` at the headline.
 Needs CUDA.
@@ -46,7 +51,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
          "file_default", "file_b1152", "file_best24", "decode_headline",
-         "decode_fixed", "decode_hires", "decode_hires6")
+         "decode_fixed", "decode_hires", "decode_hires6", "seq16k",
+         "seq32k")
 #: the decode kernels: (a substring of the CUDA symbol in every version,
 #: wrapper, plain version), all in ``flacx_torch.kernels.<wrapper>``
 DECODE_KERNELS = {
@@ -55,6 +61,10 @@ DECODE_KERNELS = {
                     "reconstruct_plain"),
     "crc16_rows": ("crc16_rows_kernel", "crc16_rows", "crc16_rows_plain"),
 }
+#: the sequence-sharding kernel's modes: a substring of each one's CUDA
+#: symbol, all in ``flacx_torch.kernels.seqshard``
+SEQ_KERNELS = {"seq_autocorr": "seq_autocorr_kernel",
+               "seq_fixed": "seq_fixed_kernel", "seq_lpc": "seq_lpc_kernel"}
 #: kernel -> (a substring of its CUDA symbol in every version, module,
 #: wrapper, plain version)
 KERNELS = {
@@ -201,13 +211,39 @@ def decode_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
             for k in kernels}
 
 
+def seq_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
+    """Each ``seqshard`` mode's median ms (``None`` for another kernel) on
+    the rows of the ``seqshard`` phase's block ``path``, after checking it
+    against its plain version on them."""
+    from flacx_torch.kernels import seqshard as k_seq
+
+    inp = cs.seq_inputs(torch, cs.hires_pcm(2, cs.SEQ_FRAMES),
+                        cs.SEQ_BLOCKS[path])
+    s = cs.SEQ_HOLD_SHARDS
+    args = {"seq_autocorr": (inp["xw"], cs.SEQ_LAGS, s),
+            "seq_fixed": (inp["x"], s),
+            "seq_lpc": (inp["x"], inp["taps"], inp["shift"], inp["order"],
+                        s)}
+    launches = {}
+    for k in kernels:
+        if k in SEQ_KERNELS:
+            fn, plain = getattr(k_seq, k), getattr(k_seq, k + "_plain")
+            compare = cs.seq_autoc_close if k == "seq_autocorr" else cs.exact
+            compare(torch, fn(*args[k]), plain(*args[k]))
+            launches[SEQ_KERNELS[k]] = (lambda f=fn, a=args[k]: f(*a))
+    ms = cs.kernel_times(torch, launches, reps) if launches else {}
+    return {k: ms[SEQ_KERNELS[k]] if k in SEQ_KERNELS else None
+            for k in kernels}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT),
                     help="checkout whose flacx_torch to time")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--kernel", nargs="+",
-                    choices=sorted(KERNELS) + sorted(DECODE_KERNELS),
+                    choices=sorted(KERNELS) + sorted(DECODE_KERNELS)
+                    + sorted(SEQ_KERNELS),
                     default=["frame_pack"])
     ap.add_argument("--path", nargs="+", choices=PATHS, default=["headline"])
     args = ap.parse_args()
@@ -234,10 +270,11 @@ def main() -> int:
         raise RuntimeError(f"flacx_torch came from {flacx_torch.__file__}")
     card = cs.card_line()
     for path in args.path:
-        if path.startswith("decode_"):
+        if path.startswith(("decode_", "seq")):
+            timer = decode_ms if path.startswith("decode_") else seq_ms
             print(json.dumps({
                 "tree": args.tree, "path": path,
-                "ms": decode_ms(torch, cs, path, args.kernel, args.reps),
+                "ms": timer(torch, cs, path, args.kernel, args.reps),
                 "reps": args.reps, "card": card}), flush=True)
             continue
         for label, enc, planar in batches(cs, path):
@@ -253,7 +290,7 @@ def main() -> int:
             torch.cuda.synchronize()
             launches, out = {}, {}
             for kernel in args.kernel:
-                if kernel in DECODE_KERNELS:
+                if kernel not in KERNELS:
                     out[kernel] = None
                     continue
                 symbol, module, wrapper, plain = KERNELS[kernel]
