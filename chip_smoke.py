@@ -15,7 +15,11 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   plain CPU path, 16 sampled frames equal to the oracle encoder's, two
   crafted batches on the overflow route (a spike in low noise, full-scale
   noise past the frame buffer), the timing, and the CD rip of the file
-  phase through ``pipeline.encode_to_file(conformance=True)``;
+  phase through ``pipeline.encode_to_file(conformance=True)``; then
+  (``conformance_hires``) 64 frames of the hi-res stereo PCM at block
+  16384, LPC order 32, precision 15 (the wide MAC, three sample limbs,
+  hi tap limbs, 33 lags): both kernels against their plain versions,
+  every CRC-16, the frames decoded on the card bit-exactly;
 * the best-compression encode (``encode --best``): the same PCM cut into
   blocks of 4608, 2304 and 1152 (1024, 2048 and 4096 frames), each
   encoded with the exact order search over the windows Tukey(0.5), Hann
@@ -104,7 +108,8 @@ arguments of their first launch in each stream's decode (rows
 
 Prints one line per phase, the run's seconds, then the kernels' JSON line
 (one row per kernel mode and path, named ``<mode>@<block>`` on the best
-path, ``<kernel>@conformance`` in conformance mode, ``<mode>@hibps28``
+path, ``<kernel>@conformance`` and ``<kernel>@conformance_hires`` in
+conformance mode, ``<mode>@hibps28``
 / ``<mode>@hibps32`` and ``lpc_allorder@best32`` past 24 bits,
 ``<mode>@file_<run>_<block>`` on the file path and ``<mode>@hires`` /
 ``<mode>@hires6`` on the hi-res ones, ``<mode>@corpus96k`` and
@@ -1368,13 +1373,12 @@ def conformance_row(torch, name: str, wrapper: str, args: tuple,
     plain version on ``args``, exactly (f64 as bits).  ``reference_lpc``'s
     bound: the larger of its bytes and its chain of n - 1 dependent f64
     adds at ``add_s`` each (every row's chain runs in parallel); counted as
-    operations at one add a latency.  ``abs_residual_sums``': a
-    multiply-add a nonzero tap of each predictor and sample (the fixed
-    predictors have 10 a sample), two operations, and four a residual
-    (shift, subtract, abs, add), at the scalar rate (the wide MAC's
-    products as limb products at the int8 tensor rate)."""
-    from flacx_torch.kernels import lpc_allorder as k_la
-    from flacx_torch.kernels import lpc_residual as k_lr
+    operations at one add a latency.  ``abs_residual_sums``', on both MACs:
+    the LPC multiply-adds as 8-bit limb products (:func:`limb_ops`, the
+    sample limbs of ``eff_bps``) at the int8 tensor rate; the fixed-order
+    differences (four a sample) and the epilogue's four operations a
+    residual (shift, subtract, abs, add; 5 + P residuals a sample) at the
+    scalar rate."""
     from flacx_torch.kernels import reference_analysis as k_ra
 
     csrc = "flacx_torch/kernels/csrc/reference_analysis.cu"
@@ -1387,22 +1391,74 @@ def conformance_row(torch, name: str, wrapper: str, args: tuple,
             [(n - 1, 1.0 / add_s)], csrc, "flacx/conformance.py:325-329 "
             "(XLA: window, ordered_autocorr, levinson_reference, "
             "quantize_reference)")
-    qcoefs, eff_bps, taps_max = args[1], args[3], args[4]
-    wide = k_lr.mac_width(eff_bps, max(taps_max, 15)) == "wide"
-    rows = x[..., 0].numel()
+    qcoefs, eff_bps = args[1], args[3]
     residuals = x.numel() * (5 + qcoefs.shape[-1])
-    if wide:
-        limbs = k_la.sample_limbs(eff_bps)
-        work = [(limb_ops(n, qcoefs.flatten(-2), limbs)
-                 + 2 * 10 * rows * n * limbs, INT8_TENSOR_OPS_PER_S),
-                (8 * residuals, SCALAR_OPS_PER_S)]
-    else:
-        taps = 10 * rows + int((qcoefs != 0).sum())
-        work = [(2 * taps * n + 4 * residuals, SCALAR_OPS_PER_S)]
+    work = [(limb_ops(n, qcoefs.flatten(-2), k_ra.sample_limbs(eff_bps)),
+             INT8_TENSOR_OPS_PER_S),
+            (4 * x.numel() + 4 * residuals, SCALAR_OPS_PER_S)]
     return kernel_row(
-        torch, name, f"abs_residual_sums_kernel<{str(wide).lower()}>",
-        k_ra.abs_residual_sums, k_ra.abs_residual_sums_plain, args, exact,
-        work, csrc, "flacx/conformance.py:307-319 + :330-333 (XLA)")
+        torch, name, "abs_residual_sums_kernel", k_ra.abs_residual_sums,
+        k_ra.abs_residual_sums_plain, args, exact, work, csrc,
+        "flacx/conformance.py:307-319 + :330-333 (XLA)")
+
+
+#: conformance mode at the hi-res shape: the hi-res stereo PCM at block
+#: 16384, LPC order 32, precision 15 (the wide MAC, three sample limbs, hi
+#: tap limbs, 33 lags)
+CONF_HIRES_FRAMES = 64
+
+
+def conformance_hires(torch, add_s: float) -> list[dict]:
+    """``EncoderConfig(conformance=True)`` on :data:`CONF_HIRES_FRAMES`
+    frames of the hi-res stereo PCM (``hires_config(2)`` at precision 15):
+    both ``reference_analysis`` kernels against their plain versions on the
+    arguments of their first launch (rows ``<kernel>@conformance_hires``),
+    the counted run, every CRC-16, and the frames decoded on the card bit-
+    exactly against the PCM."""
+    import dataclasses
+
+    import flacx_torch.conformance as conf
+    from flacx_torch import decoder
+    from flacx_torch.crc import crc16
+    from flacx_torch.encoder import BatchEncoder
+
+    cfg = dataclasses.replace(hires_config(2), qlp_precision=15,
+                              conformance=True)
+    pcm = hires_pcm(2, CONF_HIRES_FRAMES)
+    planar = blocks_of(pcm, HIRES_N, np.int32)
+    enc = BatchEncoder(cfg, batch_frames=CONF_HIRES_FRAMES)
+    captured, restore = capture_main_path_inputs(CONF_KERNELS, module=conf)
+    try:
+        enc.encode_frames(planar, 0)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    rows = [hold(torch, f"{name}@conformance_hires", name, captured[name],
+                 add_s=add_s) for name in CONF_KERNELS]
+    time_rows(torch, rows)
+    del captured
+    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                 CONF_KERNELS)
+    for row in rows:
+        row["launches"] = counts[row["name"].split("@")[0]]
+        row["batches"] = 1
+    if len(frames) != CONF_HIRES_FRAMES:
+        raise AssertionError(f"conformance_hires: {len(frames)} frames")
+    for i, fr in enumerate(frames):
+        if crc16(fr[:-2]) != int.from_bytes(fr[-2:], "big"):
+            raise AssertionError(f"conformance_hires frame {i}: CRC-16 "
+                                 "mismatch")
+    routes = {}
+    _, got = decoder.decode_array(flac_stream(frames, pcm, 96000, 24,
+                                              HIRES_N), device="cuda",
+                                  stats=routes)
+    if not np.array_equal(got, pcm):
+        raise AssertionError("conformance_hires: decode not bit-exact")
+    print(f"conformance_hires frames {CONF_HIRES_FRAMES} (block {HIRES_N}, "
+          f"order 32, precision 15): launches {counts}; all CRC-16 valid; "
+          f"decoded on the card bit-exactly ({routes}); "
+          f"{sum(map(len, frames))} bytes", flush=True)
+    return rows
 
 
 def crafted_overflow() -> list:
@@ -1543,7 +1599,7 @@ def conformance_phase(torch, pcm: np.ndarray) -> list[dict]:
           f"{CD_SECONDS / wall:.1f}x realtime; {info['frames']} frames, "
           f"{stats['bytes_out']} bytes; launches {counts}; STREAMINFO, MD5, "
           "every CRC right, sampled frames bit-exact", flush=True)
-    return rows
+    return rows + conformance_hires(torch, add_s)
 
 
 def serial_row(torch, data: bytes, pcm: np.ndarray) -> dict:

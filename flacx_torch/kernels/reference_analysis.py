@@ -17,21 +17,28 @@ import math
 
 import torch
 
+from flacx_torch.kernels.analysis import diff_width
 from flacx_torch.kernels.build import bind, check, launch
 from flacx_torch.kernels.lpc_residual import mac_width
 from flacx_torch.ops.lpc import predict_residual, shift_right_k
 
 MAX_ORDER = 32
-#: samples of a block's pass in ``abs_residual_sums`` (``PASS`` in the
-#: source) and the largest segment of a row one block takes
-PASS = 1152
-SEG_MAX = 2 * PASS
+#: the largest segment of a row one block of ``abs_residual_sums`` takes
+SEG_MAX = 2304
 
 
 def segment_size(n: int) -> int:
     """Samples of one block's segment of a row of ``n`` in
-    ``abs_residual_sums``: whole passes, at most :data:`SEG_MAX`."""
-    return min(SEG_MAX, -(-n // PASS) * PASS)
+    ``abs_residual_sums``: the row in equal parts of at most
+    :data:`SEG_MAX`, rounded up to 32."""
+    parts = -(-n // SEG_MAX)
+    return (-(-n // parts) + 31) // 32 * 32
+
+
+def sample_limbs(eff_bps: int) -> int:
+    """8-bit limbs of a sample of ``eff_bps`` bits in ``abs_residual_sums``'
+    tensor-core MAC: 2 up to 16, 3 up to 24, else 4."""
+    return 2 if eff_bps <= 16 else 3 if eff_bps <= 24 else 4
 
 
 def reference_lpc_plain(x: torch.Tensor, window: torch.Tensor,
@@ -126,9 +133,11 @@ def abs_residual_sums(x: torch.Tensor, qcoefs: torch.Tensor,
       x: int32 ``[..., n]``; qcoefs: int32 ``[..., P, P]`` (row ``o-1``
         the order-``o`` predictor, zero past ``o``; P <= 32, may be 0);
         qshift: int32 ``[..., P]``.
-      eff_bps, sum_taps_max: the static bound on the samples' width and
-        on Σ|taps| (fixed taps have 15) that picks the int32 or the int64
-        MAC (``lpc_residual.mac_width``).
+      eff_bps, sum_taps_max: the static bound on the samples' width
+        (``x`` must lie within ``eff_bps`` bits) and on Σ|taps| of the LPC
+        orders; they pick the sample limbs, the int32 or the int64 MAC
+        (``lpc_residual.mac_width``; int64 with four sample limbs), and
+        int32 or int64 fixed-order differences (``analysis.diff_width``).
     """
     if x.device.type == "cpu":
         return abs_residual_sums_plain(x, qcoefs, qshift, eff_bps,
@@ -140,14 +149,17 @@ def abs_residual_sums(x: torch.Tensor, qcoefs: torch.Tensor,
     check(qshift, "qshift", torch.int32, (*lead, p), x.device)
     if p > MAX_ORDER or n < 1:
         raise ValueError(f"abs_residual_sums: order {p} > {MAX_ORDER}")
-    wide = mac_width(eff_bps, max(sum_taps_max, 15)) == "wide"
+    limbs = sample_limbs(eff_bps)
+    wide = mac_width(eff_bps, sum_taps_max) == "wide" or limbs == 4
     seg = segment_size(n)
     new = torch.zeros if seg < n else torch.empty
     fsum = new((*lead, 5), dtype=torch.int64, device=x.device)
     lsum = new((*lead, p), dtype=torch.int64, device=x.device)
-    launch(bind("reference_analysis", "flacx_abs_residual_sums", 5, 5),
+    launch(bind("reference_analysis", "flacx_abs_residual_sums", 5, 7),
            [x, qcoefs, qshift, fsum, lsum],
-           [math.prod(lead), n, p, int(wide), seg], "abs_residual_sums")
+           [math.prod(lead), n, p, int(wide), limbs,
+            int(diff_width(eff_bps) == "int64"), seg],
+           "abs_residual_sums")
     abs_residual_sums.launches += 1
     return fsum, lsum
 

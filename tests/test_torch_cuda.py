@@ -1076,6 +1076,137 @@ def test_abs_residual_sums_kernel(dev, n, p, precision, eff_bps):
         assert torch.equal(g.cpu(), r)
 
 
+def chain_rows(seed: int, r: int, n: int) -> np.ndarray:
+    """``[r, n]`` 16-bit rows for ``reference_lpc``'s packed chains: tones
+    in noise; from the second row on, a silent row, a row whose only
+    samples are x[0] (where the window is 0) and x[n-1] (outside the
+    reference's range), so its error is 0 from the first order, a constant
+    row and full-scale alternation."""
+    x = rows(seed, r + 2, n, bits=16)[2:]
+    edge = np.zeros(n, np.int32)
+    edge[0], edge[-1] = 1234, -999
+    for i, v in enumerate((0, edge, 4321, np.where(np.arange(n) % 2, 32767,
+                                                    -32768)), start=1):
+        if i < r:
+            x[i] = v
+    return x
+
+
+@pytest.mark.parametrize("n,r", [(33, 1), (1025, 1), (4608, 1), (16384, 1),
+                                 (33, 3), (1025, 3), (4608, 3), (16384, 3),
+                                 (33, 5), (1025, 5), (4608, 5), (16384, 5),
+                                 (33, 1029), (1025, 1029)])
+@pytest.mark.parametrize("p", [1, 2, 15, 31, 32])
+def test_reference_lpc_packed_chains(dev, r, p, n):
+    """Both lane layouts: 1, 3 and 5 rows take one lag a lane (a block a
+    row; two warps at P = 32), 1029 rows the dense packing (lanes of a
+    row, rows of a warp, warps of a block), its last warp and block left
+    part-full, at orders whose rows take 2, 9, 16 and 17 lanes; silent
+    rows and rows whose error is 0 from the first order invalid
+    throughout.  (A nonzero error cannot reach exactly 0 later from
+    integer samples: the autocorrelation's Toeplitz matrix is positive
+    definite; the CPU model in test_torch_conformance_split.py feeds
+    Levinson such sequences.)  Exact against the plain version, f64 as
+    bits, one launch a call."""
+    from flacx_torch.conformance import reference_window
+    from flacx_torch.kernels import reference_analysis as k_ra
+    x = torch.from_numpy(chain_rows(p * 7 + r, r, n))
+    w = reference_window(n, torch.device("cpu"))
+    before = k_ra.reference_lpc.launches
+    got = k_ra.reference_lpc(x.to(dev), w.to(dev), p, 15 if p > 2 else 5)
+    want = k_ra.reference_lpc_plain(x, w, p, 15 if p > 2 else 5)
+    torch.cuda.synchronize()
+    assert k_ra.reference_lpc.launches == before + 1
+    assert f64_bits_equal(got[0], want[0])
+    for g, v in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), v)
+    assert want[3][0].all()
+    for i in (1, 2):
+        if i < r:
+            assert not want[3][i].any()
+
+
+def full_scale(seed: int, r: int, n: int, bits: int) -> np.ndarray:
+    """``[r, n]`` int32 rows of ``bits``-bit samples: white noise, the two
+    extremes alternating and in runs of three, then tones in noise."""
+    rng = np.random.default_rng(seed)
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    t = np.arange(n)
+    x = np.round(np.sin(t[None] * rng.uniform(0.001, 0.2, (r, 1)))
+                 * rng.uniform(0, hi, (r, 1))
+                 + rng.standard_normal((r, n)) * (hi / 64))
+    x = np.clip(x, lo, hi)
+    x[0] = rng.integers(lo, hi + 1, n)
+    if r > 1:
+        x[1] = np.where(t % 2, hi, lo)
+    if r > 2:
+        x[2] = np.where(t // 3 % 2, hi, lo)
+    return x.astype(np.int64).astype(np.int32)
+
+
+def sum_args(seed: int, r: int, n: int, p: int, eff_bps: int,
+             precision: int, hi_rows: bool = True):
+    """:func:`full_scale` rows and taps at the clip bounds of
+    ``precision`` (rows 0 and 1 at -2^(prec-1) and 2^(prec-1) - 1
+    throughout), shifts 0..15 (row 0 at 0); with ``hi_rows`` False every
+    other row's taps fit one signed byte (no hi limb), the rest keep
+    theirs."""
+    x = full_scale(seed, r, n, eff_bps)
+    rng = np.random.default_rng(seed + 1)
+    lim = 1 << (precision - 1)
+    q = rng.integers(-lim, lim, (r, p, p))
+    q[0] = -lim
+    if r > 1:
+        q[1] = lim - 1
+    if not hi_rows:
+        q[::2] = np.clip(q[::2], -128, 127)
+    q = (q * np.tril(np.ones((p, p), np.int64))).astype(np.int32)
+    s = rng.integers(0, 16, (r, p)).astype(np.int32)
+    if p:
+        s[0] = 0
+    return (torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s),
+            max(p, 1) << (precision - 1))
+
+
+def hold_sums(dev, args, eff_bps):
+    from flacx_torch.kernels import reference_analysis as k_ra
+    x, q, s, taps_max = args
+    before = k_ra.abs_residual_sums.launches
+    got = k_ra.abs_residual_sums(x.to(dev), q.to(dev), s.to(dev), eff_bps,
+                                 taps_max)
+    want = k_ra.abs_residual_sums_plain(x, q, s, eff_bps, taps_max)
+    torch.cuda.synchronize()
+    assert k_ra.abs_residual_sums.launches == before + 1
+    for g, v in zip(got, want):
+        assert torch.equal(g.cpu(), v)
+
+
+@pytest.mark.parametrize("precision", [5, 8, 9, 15])
+@pytest.mark.parametrize("eff_bps", [8, 16, 17, 24, 25, 28, 32])
+def test_abs_residual_sums_limb_routes(dev, eff_bps, precision):
+    """Every sample-limb count (2 up to 16 bits, 3 up to 24, 4 past), with
+    and without hi tap limbs, the int32 and the int64 combine, 32- and
+    64-bit sums, int32 and int64 differences: full-scale rows at the
+    extremes, taps at the clip bounds, two segments a row."""
+    hold_sums(dev, sum_args(eff_bps * 16 + precision, 6, 4097, 12, eff_bps,
+                            precision), eff_bps)
+
+
+def test_abs_residual_sums_mixed_hi_limbs(dev):
+    """One batch whose rows' blocks take the hi tap products and skip
+    them, row by row."""
+    hold_sums(dev, sum_args(3, 8, 4608, 12, 16, 9, hi_rows=False), 16)
+
+
+@pytest.mark.parametrize("p", [0, 1, 4, 12, 13, 32])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4608, 16384])
+def test_abs_residual_sums_shapes(dev, n, p):
+    """Rows shorter than a 16-sample block and than the orders, one and
+    eight segments a row, no LPC order, a lone order, the packed last tile
+    (4, 12), the unpacked one (13) and four full tiles (32)."""
+    hold_sums(dev, sum_args(n + p, 5, n, p, 17, 9), 17)
+
+
 @pytest.mark.parametrize("n,p,kinds", [
     (1152, 12, ("tonal", "noise", "impulse", "silence")),
     (4608, 8, ("tonal", "noise"))])

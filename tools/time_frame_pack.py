@@ -5,19 +5,23 @@ more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
     python3 tools/time_frame_pack.py [--tree DIR] [--reps 50]
         [--kernel {analysis,frame_pack,lpc_allorder,lpc_residual_res,
                    lpc_residual_stats,lpc_residual_zz,rice_stats,
-                   bit_unpack,reconstruct,crc16_rows,seq_autocorr,
-                   seq_fixed,seq_lpc} ...]
+                   reference_lpc,abs_residual_sums,bit_unpack,
+                   reconstruct,crc16_rows,seq_autocorr,seq_fixed,
+                   seq_lpc} ...]
         [--path {headline,best4608,best2304,best1152,hires,hires6,
-                 file_default,file_b1152,file_best24,decode_headline,
-                 decode_fixed,decode_hires,decode_hires6,seq16k,
-                 seq32k} ...]
+                 file_default,file_b1152,file_best24,conformance,
+                 conformance_hires,decode_headline,decode_fixed,
+                 decode_hires,decode_hires6,seq16k,seq32k} ...]
 
 Encodes one batch of each encode path (the data of ``chip_smoke.py``:
 the 1024-frame headline batch at block 4608; the best-compression batch
 at block 4608, 2304 or 1152; the hi-res stereo or 5.1 batch;
 ``file_default`` and ``file_b1152`` a 256-frame batch of the CD rip at
 the defaults and at ``-b 1152``; ``file_best24`` the 256-frame ``--best``
-batches of the 24-bit master at blocks 4608, 2304 and 1152) with the
+batches of the 24-bit master at blocks 4608, 2304 and 1152;
+``conformance`` the headline batch with ``EncoderConfig(conformance=True)``
+and ``conformance_hires`` the 64 hi-res stereo frames of ``chip_smoke.py``'s
+conformance phase at block 16384, LPC order 32, precision 15) with the
 ``flacx_torch`` package found in ``DIR`` (default: this checkout), keeps
 the arguments of each kernel's first launch, checks the kernel against
 its plain version, and prints one JSON line per batch: the tree, the
@@ -50,9 +54,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
-         "file_default", "file_b1152", "file_best24", "decode_headline",
-         "decode_fixed", "decode_hires", "decode_hires6", "seq16k",
-         "seq32k")
+         "file_default", "file_b1152", "file_best24", "conformance",
+         "conformance_hires", "decode_headline", "decode_fixed",
+         "decode_hires", "decode_hires6", "seq16k", "seq32k")
 #: the decode kernels: (a substring of the CUDA symbol in every version,
 #: wrapper, plain version), all in ``flacx_torch.kernels.<wrapper>``
 DECODE_KERNELS = {
@@ -81,6 +85,10 @@ KERNELS = {
                         "lpc_residual_zz", "lpc_residual_zz_plain"),
     "lpc_residual_res": ("lpc_residual_kernel<2", "lpc_residual",
                          "lpc_residual_res", "lpc_residual_res_plain"),
+    "reference_lpc": ("reference_lpc_kernel", "reference_analysis",
+                      "reference_lpc", "reference_lpc_plain"),
+    "abs_residual_sums": ("abs_residual_sums_kernel", "reference_analysis",
+                          "abs_residual_sums", "abs_residual_sums_plain"),
 }
 
 
@@ -142,6 +150,20 @@ def batches(cs, path: str):
         enc = BatchEncoder(cs.hires_config(channels), batch_frames=frames)
         yield path, enc, cs.blocks_of(cs.hires_pcm(channels, frames),
                                       cs.HIRES_N, np.int32)
+    elif path == "conformance":
+        cfg = EncoderConfig(block_size=cs.N, max_lpc_order=12,
+                            conformance=True)
+        pcm = cs.synth_pcm(np.random.default_rng(cs.SEED), cs.N * cs.B)
+        yield path, BatchEncoder(cfg, batch_frames=cs.B), cs.blocks_of(pcm,
+                                                                      cs.N)
+    elif path == "conformance_hires":
+        import dataclasses
+
+        cfg = dataclasses.replace(cs.hires_config(2), qlp_precision=15,
+                                  conformance=True)
+        frames = cs.CONF_HIRES_FRAMES
+        yield path, BatchEncoder(cfg, batch_frames=frames), cs.blocks_of(
+            cs.hires_pcm(2, frames), cs.HIRES_N, np.int32)
     elif path in ("file_default", "file_b1152"):
         bs = cs.N if path == "file_default" else 1152
         cd = cs.file_inputs()["cd"][0]
@@ -278,9 +300,16 @@ def main() -> int:
                 "reps": args.reps, "card": card}), flush=True)
             continue
         for label, enc, planar in batches(cs, path):
+            # the wrappers the path's module calls (conformance mode's
+            # module calls its own kernels and lpc_residual_zz)
+            module = (importlib.import_module("flacx_torch.conformance")
+                      if path.startswith("conformance") else
+                      importlib.import_module("flacx_torch.encoder"))
             others = [k for k in args.kernel
-                      if k != "analysis" and k in KERNELS]
-            captured, restore = cs.capture_main_path_inputs(others)
+                      if k != "analysis" and k in KERNELS
+                      and (k == "frame_pack" or hasattr(module, k))]
+            captured, restore = cs.capture_main_path_inputs(others,
+                                                            module=module)
             calls, restore_an = capture_every_call("analysis")
             try:
                 enc.encode_batch_device(planar, 0)
@@ -298,6 +327,9 @@ def main() -> int:
                 fn = getattr(mod, wrapper)
                 ref = getattr(mod, plain) if plain else None
                 if kernel == "analysis":
+                    if not calls:
+                        out[kernel] = None
+                        continue
                     close = cs.autoc_close(
                         1e-12 if calls[0][1].dtype == torch.float64 else 1e-9,
                         1e-12)
@@ -316,6 +348,8 @@ def main() -> int:
                 kargs = captured[kernel]
                 if plain is None:
                     cs.rice_equal(torch, fn(*kargs), rice.rice_stats(*kargs))
+                elif kernel == "reference_lpc":
+                    cs.bits_equal(torch, fn(*kargs), ref(*kargs))
                 else:
                     cs.exact(torch, fn(*kargs), ref(*kargs))
                 launches[symbol] = (lambda f=fn, a=kargs: f(*a))
