@@ -141,11 +141,13 @@ WASTED_FRAMES = 64
 #: int8 tensor-core rate, and the non-tensor f32 rate, used for every
 #: scalar ALU operation of the kernels; f64 instructions (a multiply, an
 #: add or a fused multiply-add) issue at 64 per clock per SM (132 SMs,
-#: 1.98 GHz).
+#: 1.98 GHz), f64 tensor-core multiply-adds at 128 (67 against 34 TFLOP/s
+#: on the data sheet).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 SCALAR_OPS_PER_S = 67e12
 F64_OPS_PER_S = 64 * 132 * 1.98e9
+F64_TENSOR_OPS_PER_S = 128 * 132 * 1.98e9
 #: small launches that open each profiler trace (:func:`kernel_times`)
 TRACE_PRELUDE = 512
 
@@ -165,6 +167,44 @@ def synth_pcm(rng: np.random.Generator, frames: int,
     pcm = np.stack([left, right], axis=1) * (22000 * 2.0 ** (bps - 16))
     top = 1 << (bps - 1)
     return np.clip(pcm, -top, top - 1).astype(np.int64).astype(np.int32)
+
+
+def ptxas_resources(log: str) -> list[tuple]:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, entry, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), *spills))
+            entry = None
+    return out
+
+
+#: the kernel libraries whose registers and spills the run prints
+#: (redesigned last)
+REPORTED_LIBRARIES = ("seqshard", "crc16_rows")
+
+
+def print_resources() -> None:
+    """Each kernel of :data:`REPORTED_LIBRARIES`: its registers and spills
+    from the build's ``-Xptxas -v`` report."""
+    from flacx_torch.kernels.build import build_dir
+
+    for name in REPORTED_LIBRARIES:
+        for entry, regs, st, ld in ptxas_resources(
+                (build_dir() / f"{name}.log").read_text()):
+            print(f"ptxas {name} {entry}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads", flush=True)
 
 
 def card_line() -> str:
@@ -322,16 +362,19 @@ def kernel_row(torch, name, symbol, kernel, plain, args, compare, work,
                       f"({moved} bytes, {ops_text})")}
 
 
-def time_rows(torch, rows: list[dict], reps: int = 20) -> None:
+def time_rows(torch, rows: list[dict], reps: int = 20,
+              extra: dict | None = None) -> dict:
     """Fill in every row's ``ms`` from one profiler trace of all their
-    kernels (``reps`` launches each) and print the rows."""
+    kernels (``reps`` launches each) and print the rows; ``extra`` (symbol
+    → launch) is timed in the same trace, its medians returned."""
     launches = dict(row["_launch"] for row in rows)
     assert len(launches) == len(rows), "two rows share a kernel symbol"
-    ms = kernel_times(torch, launches, reps)
+    ms = kernel_times(torch, {**launches, **(extra or {})}, reps)
     for row in rows:
         row["ms"] = ms[row.pop("_launch")[0]]
         print(f"kernel {row['name']}: max_abs_err {row['max_abs_err']} ms "
               f"{row['ms']:.4f} {row.pop('_text')}", flush=True)
+    return {k: ms[k] for k in extra or {}}
 
 
 def exact(torch, a, b):
@@ -1287,6 +1330,7 @@ def decode_phase(torch, streams: dict) -> list[dict]:
     sequential decode) and the timing: wall, walker, copy and device ms a
     batch, decoded samples/s."""
     import flacx_torch.decoder as dec
+    from flacx_torch.kernels import crc16_rows as k_crc
 
     card = card_line()
     rows = []
@@ -1309,7 +1353,17 @@ def decode_phase(torch, streams: dict) -> list[dict]:
             mode = f"_{route}" if wrapper == "reconstruct" else ""
             group.append(hold(torch, f"{wrapper}{mode}@{label}", wrapper,
                               captured[wrapper]))
-        time_rows(torch, group)
+        # the launch floor: an empty kernel on crc16_rows' grid (clusters
+        # included), in the same trace
+        crc_f, crc_w = captured["crc16_rows"][0].shape
+        floor = time_rows(torch, group, extra={
+            "flacx_empty_kernel": lambda: k_crc.empty(
+                torch.device("cuda"), crc_f, crc_w)})["flacx_empty_kernel"]
+        print(f"launch floor @{label}: empty kernel on crc16_rows' grid for "
+              f"{crc_f} rows of {crc_w} bytes {floor:.4f} ms "
+              f"(crc16_rows@{label} "
+              f"{group[-1]['ms']:.4f} ms, bound {group[-1]['bound_ms']:.4f})",
+              flush=True)
 
         del captured, rec
         for bf in DECODE_BATCHES[label]:
@@ -2424,11 +2478,15 @@ def seq_block(torch, label: str, inp: dict) -> list[dict]:
     rows_n, n = x.shape
     s, lags = SEQ_HOLD_SHARDS, SEQ_LAGS
     products = rows_n * sum(n - 1 - lag for lag in range(lags + 1))
+    # f32 rows: the f32 products, and their exact f64 sums as multiply-adds
+    # at the f64 tensor rate (f64 rows keep them at the f64 rate)
+    f64_rate = (F64_OPS_PER_S if xw.dtype == torch.float64 else
+                F64_TENSOR_OPS_PER_S)
     rows = [
         kernel_row(torch, f"seq_autocorr@{label}", "seq_autocorr_kernel",
                    k_seq.seq_autocorr, k_seq.seq_autocorr_plain,
                    (xw, lags, s), seq_autoc_close,
-                   [(products, F64_OPS_PER_S), (products, SCALAR_OPS_PER_S)],
+                   [(products, f64_rate), (products, SCALAR_OPS_PER_S)],
                    SEQ_SOURCE, "flacx/parallel/seqshard.py:47-67"),
         # about 35 integer operations a sample: 10 differences, 5 zigzags
         # of 3, 5 masked 64-bit adds of 2
@@ -2800,6 +2858,7 @@ def main() -> int:
     build_s = build_all()
     print(f"card {card}; torch {torch.__version__} cuda {torch.version.cuda};"
           f" kernel build {build_s:.2f} s", flush=True)
+    print_resources()
 
     pcm = synth_pcm(np.random.default_rng(SEED), N * B)
     streams = {}

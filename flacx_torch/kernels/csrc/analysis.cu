@@ -96,35 +96,6 @@ struct Args {
   int n, max_lag, nwin, fixed, wide, seg, nseg;
 };
 
-// Sums v[0..V) over the warp, V a power of two <= 32, by halving: at
-// each step a lane keeps half of its values and adds its partner's copy of
-// that half, so V - 1 shuffles replace V * 5.  Returns value lane >> (5 -
-// log2 V)'s sum (lanes that differ only in the low bits hold the same).
-// Every loop has a constant trip count, so v stays in registers.
-template <int V>
-__device__ __forceinline__ double reduce_scatter(double (&v)[V], int lane) {
-  constexpr int LOG2V = V == 32 ? 5 : V == 16 ? 4 : V == 8 ? 3 : 0;
-  static_assert(LOG2V, "V is 8, 16 or 32");
-#pragma unroll
-  for (int step = 0; step < LOG2V; ++step) {
-    const int h = V >> (step + 1), b = 16 >> step;
-    const bool hi = lane & b;
-#pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      if (k < h) {
-        const double send = hi ? v[k] : v[k + h];
-        const double keep = hi ? v[k + h] : v[k];
-        v[k] = __dadd_rn(keep, __shfl_xor_sync(flacx::FULL_MASK, send, b));
-      }
-    }
-  }
-  double s = v[0];
-#pragma unroll
-  for (int step = LOG2V; step < 5; ++step)
-    s = __dadd_rn(s, __shfl_xor_sync(flacx::FULL_MASK, s, 16 >> step));
-  return s;
-}
-
 // Shared memory of a block: the windowed values and the samples of its
 // segment, each with the halo.
 template <typename T, int MAXLAG>
@@ -250,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) analysis_kernel(Args a) {
 
     // the block's sums: a butterfly over each warp, then the warps in order
     {
-      const double s = reduce_scatter<V>(acc, lane);
+      const double s = flacx::reduce_scatter<V>(acc, lane, flacx::AddRn{});
       const int lag = V == 16 ? lane >> 1 : lane;
       if ((V == 32 || !(lane & 1)) && lag <= MAXLAG) red_d[warp][lag] = s;
       if (MAXLAG == V) {
@@ -311,24 +282,20 @@ __global__ void __launch_bounds__(THREADS) analysis_kernel(Args a) {
 }
 
 template <typename T, int MAXLAG>
-void launch(const Args& a, int rows, cudaStream_t stream) {
-  static bool sized = false;  // past 48 KB, dynamic shared memory is opt-in
-  if (!sized) {
-    cudaFuncSetAttribute(analysis_kernel<T, MAXLAG>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_bytes<T, MAXLAG>(SEG_LIMIT));
-    sized = true;
-  }
-  analysis_kernel<T, MAXLAG>
-      <<<rows * a.nseg, THREADS, smem_bytes<T, MAXLAG>(a.seg), stream>>>(a);
+int launch(const Args& a, int rows, cudaStream_t stream) {
+  static int allowed[flacx::MAX_DEVICES];  // opted-in bytes, per device
+  const int smem = smem_bytes<T, MAXLAG>(a.seg);
+  const cudaError_t e =
+      flacx::allow_smem(analysis_kernel<T, MAXLAG>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  analysis_kernel<T, MAXLAG><<<rows * a.nseg, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-void launch(const Args& a, int rows, cudaStream_t stream) {
-  if (a.max_lag <= 12)
-    launch<T, 12>(a, rows, stream);
-  else
-    launch<T, 32>(a, rows, stream);
+int launch(const Args& a, int rows, cudaStream_t stream) {
+  return a.max_lag <= 12 ? launch<T, 12>(a, rows, stream)
+                         : launch<T, 32>(a, rows, stream);
 }
 
 }  // namespace
@@ -353,9 +320,6 @@ FLACX_API int flacx_analysis(const int32_t* x, const void* win,
   if (nseg > 1 && (!scratch || !tickets)) return (int)cudaErrorInvalidValue;
   const Args a{x,       win,  autoc, fsums, scratch, tickets, n,
                max_lag, nwin, fixed, wide,  seg,     nseg};
-  if (f64)
-    launch<double>(a, rows, stream);
-  else
-    launch<float>(a, rows, stream);
-  return (int)cudaGetLastError();
+  return f64 ? launch<double>(a, rows, stream)
+             : launch<float>(a, rows, stream);
 }

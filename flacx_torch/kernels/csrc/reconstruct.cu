@@ -645,18 +645,11 @@ int launch_iir(const Args& a, int blocks, cudaStream_t stream) {
   const int lanes = a.groups_per_block * a.c;
   const int smem =
       n_slots<Acc>() * lanes * (a.ws + 2) * (int)sizeof(long long);
-  static int allowed = 0;
-  if (smem > allowed) {   // past the 48 KB default; as many blocks as fit
-    cudaError_t e = cudaFuncSetAttribute(
-        reconstruct_kernel_iir<T, Acc>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(reconstruct_kernel_iir<T, Acc>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               100);
-    if (e != cudaSuccess) return (int)e;
-    allowed = smem;
-  }
+  // past the 48 KB default, per device; as many blocks as fit
+  static int allowed[flacx::MAX_DEVICES];
+  const cudaError_t e =
+      flacx::allow_smem(reconstruct_kernel_iir<T, Acc>, smem, allowed, 100);
+  if (e != cudaSuccess) return (int)e;
   reconstruct_kernel_iir<T, Acc>
       <<<blocks, 32 * (1 + n_movers<Acc>()), smem, stream>>>(a);
   return (int)cudaGetLastError();

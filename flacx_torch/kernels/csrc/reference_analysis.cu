@@ -132,7 +132,6 @@
 namespace {
 
 constexpr int MAX_ORDER = 32;
-constexpr int MAX_DEVICES = 64;  // cards a process may launch on
 constexpr double LN2 = 0.6931471805599453;  // math.log(2.0)
 
 // ---- reference_lpc -------------------------------------------------------
@@ -965,8 +964,8 @@ FLACX_API int flacx_reference_lpc(const int32_t* x, const double* window,
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static int sms[MAX_DEVICES];  // read once a device
+  if (dev >= flacx::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static int sms[flacx::MAX_DEVICES];  // read once a device
   if (!sms[dev]) {
     e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
                                dev);
@@ -1003,13 +1002,9 @@ FLACX_API int flacx_reference_lpc(const int32_t* x, const double* window,
   const int brows = one ? 1 : chains * sp.rpw;
   const int smem = brows * sp.stride * (int)sizeof(double);
   auto kernel = one ? reference_lpc_kernel<true> : reference_lpc_kernel<false>;
-  static int allowed[2][MAX_DEVICES];  // past 48 KB, shared memory is opt-in
-  if (smem > allowed[one][dev]) {
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed[one][dev] = smem;
-  }
+  static int allowed[2][flacx::MAX_DEVICES];  // opted-in bytes, per device
+  e = flacx::allow_smem(kernel, smem, allowed[one]);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<(rows + brows - 1) / brows, 32 * (chains + 1), smem, stream>>>(
       x, window, autoc, qcoefs, shift, valid, rows, n, p, precision, sp);
   return (int)cudaGetLastError();

@@ -1637,3 +1637,141 @@ def test_seqshard_sharded_functions_on_card(dev):
         assert torch.equal(mx[below], maxabs[below].long())
         assert autoc_ok(seqshard.autocorrelate_sharded(x.float() * w, 32,
                                                        mesh), autoc)
+
+
+#: (local, shards, shard0, samples of the row past the span, a halo): a
+#: shard not a multiple of the lane run, shards as short as the halo (32
+#: and 4), the row's end at the span's end or one past it, shards of
+#: several tiles a warp
+SEQ_EDGES = [(300, 3, 2, 77, True), (32, 4, 0, 0, False),
+             (32, 2, 3, 1, True), (4, 6, 1, 5, True), (5000, 2, 1, 0, True),
+             (257, 1, 0, 0, False)]
+
+
+@pytest.mark.parametrize("local,shards,shard0,extra,with_halo", SEQ_EDGES)
+def test_seqshard_kernel_run_edges(dev, local, shards, shard0, extra,
+                                   with_halo):
+    """Each mode at the lane runs' and tiles' edges against its plain
+    version: f32 and f64 products, int32 and int64 differences, LPC taps
+    with trailing zeros (so the tap bucket is below ``t``) and a row of
+    zero taps; halos across the span's edge, or none."""
+    from flacx_torch.kernels import seqshard as k_seq
+    rng = np.random.default_rng(local * 7 + shard0)
+    m = local * shards
+    full = torch.from_numpy(rows(local, 5, m + 64, 24)).to(dev)
+    x, before, after = (full[:, 32:32 + m].contiguous(),
+                        full[:, :32].contiguous(),
+                        full[:, 32 + m:].contiguous())
+    n = (shard0 + shards) * local + extra
+    lag = min(32, local)
+    w = torch.rand(m + 64, generator=torch.Generator().manual_seed(m)).to(dev)
+    for dtype in (torch.float32, torch.float64):
+        xw = (full.to(dtype) * w.to(dtype))
+        span = xw[:, 32:32 + m].contiguous()
+        halo = xw[:, 32 + m:32 + m + lag].contiguous() if with_halo else None
+        got = k_seq.seq_autocorr(span, lag, shards, halo, shard0, n)
+        want = k_seq.seq_autocorr_plain(span, lag, shards, halo, shard0, n)
+        assert autoc_ok(got, want), dtype
+    for xi in (x, x.long()):
+        hb = before[:, 28:].to(xi.dtype).contiguous() if with_halo else None
+        assert torch.equal(k_seq.seq_fixed(xi, shards, hb, shard0),
+                           k_seq.seq_fixed_plain(xi, shards, hb, shard0))
+    t = min(32, local)
+    taps = torch.from_numpy(rng.integers(-2 ** 14, 2 ** 14, (5, t))
+                            .astype(np.int32)).to(dev)
+    taps[1, max(1, t - 3):] = 0                      # a lower bucket
+    taps[2] = 0                                      # no tap at all
+    taps[3, t // 2:] = 0
+    shift = torch.tensor([0, 5, 9, 15, 3], dtype=torch.int32, device=dev)
+    order = torch.tensor([t, 0, 3, local * shard0 + 1, 1],
+                         dtype=torch.int32, device=dev)
+    hl = before[:, 32 - t:].contiguous() if with_halo else None
+    got = k_seq.seq_lpc(x, taps, shift, order, shards, hl, shard0)
+    want = k_seq.seq_lpc_plain(x, taps, shift, order, shards, hl, shard0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("w,count", [(1024, 1), (4096, 7), (260, 5),
+                                     (300032, 3)])
+def test_crc16_rows_kernel_edges(dev, w, count):
+    """Lengths under 2, equal to the row width and one past it; a byte
+    corrupted in a row's first and in its last body word; a batch of one
+    row; a width that is not a multiple of 16 (4-byte copies) and rows of
+    several blocks a row (a cluster)."""
+    from flacx_torch.native import crc16_rows as host_crc16
+
+    rng = np.random.default_rng(w + count)
+    rows_np = rng.integers(0, 256, (count, w)).astype(np.uint8)
+    lens = rng.integers(2, w + 1, count)
+    lens[0] = w
+    if count > 2:
+        lens[1], lens[2] = 1, 0
+    good = (lens >= 2) & (lens <= w)
+    crc = host_crc16(rows_np[good], (lens[good] - 2).astype(np.int32))
+    for i, c in zip(np.flatnonzero(good), crc):
+        rows_np[i, lens[i] - 2], rows_np[i, lens[i] - 1] = c >> 8, c & 0xFF
+    bad = {}
+    if count > 4:
+        bad = {3: 1, 4: int(lens[4]) - 3}           # first word, last word
+        lens[3], lens[4] = max(lens[3], 8), max(lens[4], 8)
+    for row, byte in bad.items():
+        body = int(lens[row]) - 2
+        crc = host_crc16(rows_np[row:row + 1], np.array([body], np.int32))
+        rows_np[row, body], rows_np[row, body + 1] = crc[0] >> 8, crc[0] & 255
+        rows_np[row, min(byte, body - 1)] ^= 0x10
+    args = (torch.from_numpy(rows_np).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev))
+    before = k_crc.crc16_rows.launches
+    ok, all_ok = k_crc.crc16_rows(*args)
+    ref_ok, ref_all = k_crc.crc16_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert k_crc.crc16_rows.launches == before + 1
+    assert torch.equal(ok, ref_ok) and torch.equal(all_ok, ref_all)
+    assert ok.tolist() == [int(bool(good[i]) and i not in bad)
+                           for i in range(count)]
+
+
+def opt_in_inputs(d):
+    """The f64 analysis at a 4608-sample segment (past 48 KB of shared
+    memory) and a serial-route ``reconstruct`` batch (the IIR kernel, 32
+    taps, int64), on card ``d``."""
+    rng = np.random.default_rng(48)
+    x = torch.from_numpy(rows(48, 4, 4608)).to(d)
+    win = torch.rand(4608, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(48)).to(d)
+    f, c, n = 3, 2, 4608
+    order = rng.integers(1, 33, (f, c)).astype(np.int32)
+    taps = np.where(np.arange(32) < order[..., None],
+                    rng.integers(-2 ** 14, 2 ** 14, (f, c, 32)), 0)
+    vals = rng.integers(-2 ** 12, 2 ** 12, (f, c, n))
+    vals[np.arange(n) < order[..., None]] = 0
+    rec = [torch.from_numpy(np.ascontiguousarray(v)).to(d) for v in (
+        vals, taps.astype(np.int32), np.full((f, c), 9, np.int32), order,
+        np.full((f, c), 3, np.int32), np.zeros((f, c), np.int32),
+        rng.integers(-2 ** 15, 2 ** 15, (f, c, 32)),
+        np.zeros((f, c), np.int64), np.full(f, 1, np.int32))]
+    return x, win, rec
+
+
+def test_shared_memory_opt_in_on_every_card(dev):
+    """The opt-in past 48 KB holds per card: the f64 ``analysis`` (at
+    least 55,488 bytes of shared memory at a 4608-sample segment) and
+    ``reconstruct``'s IIR route launch on ``cuda:0`` and then on every
+    other visible card, each equal to its plain version there."""
+    assert k_an.segment_size(4608) == 4608
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    for d in cards:
+        with torch.cuda.device(d):
+            x, win, rec = opt_in_inputs(d)
+            autoc, fsums = k_an.analysis(x, win, 32)
+            ref_a, ref_f = k_an.analysis_plain(x, win, 32)
+            assert torch.equal(fsums, ref_f)
+            tol = 1e-12 * (ref_a.abs() + ref_a[..., :1].abs())
+            assert bool(((autoc - ref_a).abs() <= tol).all())
+            hold_reconstruct(*rec, None, 0, 32, False,
+                             k_rec.residual_limit(16, False))
+            torch.cuda.synchronize()
+    if len(cards) < 2:
+        pytest.skip("one visible card: cuda:0 passed; the opt-in on a "
+                    "second card needs a machine with two")

@@ -77,6 +77,44 @@ def test_port_source_names_no_flacx_module(path):
                          text), path
 
 
+CSRC = ROOT / "flacx_torch/kernels/csrc"
+
+
+@pytest.mark.parametrize("path", sorted(CSRC.glob("*.cu*")),
+                         ids=lambda p: p.name)
+def test_shared_memory_opt_in_is_per_device_and_checked(path):
+    """Past 48 KB, dynamic shared memory is opt-in and the opt-in holds for
+    the current device only: no launcher keeps a process-wide ``static``
+    flag or size (a ``static`` is an array over ``MAX_DEVICES``, indexed
+    by ``cudaGetDevice``), and every ``cudaFuncSetAttribute`` call's
+    result is assigned and checked at once, so a refused opt-in reaches
+    the wrapper, which raises."""
+    text = re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+    for m in re.finditer(r"\bstatic\s+(?!assert|constexpr|_)([^;(]*);",
+                         text):
+        assert "MAX_DEVICES]" in m.group(1), (path.name, m.group(0))
+    calls = list(re.finditer(r"cudaFuncSetAttribute\s*\(", text))
+    checked = list(re.finditer(
+        r"\b(\w+)\s*=\s*cudaFuncSetAttribute\s*\([^;]*\);\s*"
+        r"if\s*\(\s*(\w+)\s*!=\s*cudaSuccess\s*\)\s*return\b", text))
+    assert len(checked) == len(calls), path.name
+    assert all(c.group(1) == c.group(2) for c in checked), path.name
+    if calls:
+        assert "cudaGetDevice(" in text, path.name
+
+
+def test_opt_in_scan_covers_every_launcher_that_opts_in():
+    """The launchers past 48 KB (``analysis``, ``reconstruct``,
+    ``reference_lpc``) opt in through ``flacx::allow_smem``, one array of
+    sizes a kernel."""
+    for name in ("analysis", "reconstruct", "reference_analysis"):
+        text = (CSRC / f"{name}.cu").read_text()
+        assert "flacx::allow_smem(" in text, name
+        assert re.search(r"static int \w+\[(?:\d\]\[)?flacx::MAX_DEVICES\]",
+                         text), name
+    assert "cudaFuncSetAttribute" in (CSRC / "common.cuh").read_text()
+
+
 def test_device_is_explicit():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

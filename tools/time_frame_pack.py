@@ -38,9 +38,28 @@ with ``decoder.decode_array`` at 256 frames a batch and time
 their first launch.  The sequence-sharding paths (``seq16k``,
 ``seq32k``) time the ``seqshard`` kernel's modes on the rows of
 ``chip_smoke.py``'s ``seqshard`` phase at ``seq_mesh(1, 8)``'s launch.
-A kernel the path does not run gets ``null``.  Run
-it on two checkouts in one call (A, B, B, A) to compare two versions of
-a kernel at these shapes.  Defaults: ``frame_pack`` at the headline.
+A kernel the path does not run gets ``null``.  Where the tree's
+``crc16_rows`` module has ``empty``, the decode and sequence-sharding
+lines add ``floor``: the median ms of an empty kernel in the same trace
+(on ``crc16_rows``' grid for its batch, clusters included, on the
+decode paths; one block of its size on the others).  Run it on two checkouts in one
+call (A, B, B, A) to compare two versions of a kernel at these shapes.
+Defaults: ``frame_pack`` at the headline.
+
+    python3 tools/time_frame_pack.py --tree DIR --step0 [--path ...]
+
+(Step 0) builds variants of the tree's ``seqshard.cu`` and
+``crc16_rows.cu`` outside the package (``nvcc`` into a temporary
+directory, the package's flags), each with one phase stripped by a text
+patch (:data:`STEP0`; a patch that does not apply to the tree's source
+is reported and skipped), prints each kernel's registers and spills from
+``-Xptxas -v``, and times each variant with CUDA events (20 launches back
+to back, the median of 5 rounds) and as the median of 20 launches in one
+profiler trace a path (where the host's launch time cannot hide a short
+kernel), on the arguments of the held launch of each ``--path``
+(``seq16k`` / ``seq32k``: the three modes; ``decode_*``:
+``crc16_rows``).  Stripped variants compute wrong results by design; the
+full one is checked against the plain version.
 Needs CUDA.
 """
 
@@ -90,6 +109,242 @@ KERNELS = {
     "abs_residual_sums": ("abs_residual_sums_kernel", "reference_analysis",
                           "abs_residual_sums", "abs_residual_sums_plain"),
 }
+
+
+#: Step 0's variants of the redesigned sources: source -> variant -> text
+#: patches (old, new) of the source (``full``: none); a variant applies to
+#: the sources its patches match.  ``minblocks`` asks for 4 blocks an SM
+#: (at most 128 registers), ``nosplit`` drops the f32 error sums,
+#: ``nodmma`` the tensor cores' exact products, ``onebucket`` runs every
+#: LPC row at 32 taps, ``nomac`` drops the LPC MAC, ``parts2`` gives a
+#: warp about two tiles; crc16_rows ``nofold`` XORs the words in place of
+#: the table fold, ``noshift`` drops the GF(2) shift of a run,
+#: ``onecluster`` takes one block a row.
+STEP0 = {
+    "seqshard": {
+        "full": [],
+        "minblocks": [("__launch_bounds__(32 * MAXWARPS)\nseq_autocorr",
+                       "__launch_bounds__(32 * MAXWARPS, 4)\nseq_autocorr"),
+                      ("__launch_bounds__(32 * MAXWARPS)\nseq_lpc",
+                       "__launch_bounds__(32 * MAXWARPS, 4)\nseq_lpc")],
+        "nosplit": [("        err[l] = __fadd_rn(err[l], __fmaf_rn(av[r], b, "
+                     "-__fmul_rn(av[r], b)));", "        (void)0;")],
+        "nodmma": [("      dmma(m[n0], av, sw.w[slot(k0 + k, 8 * n0 + a)]);",
+                    "      (void)0;")],
+        "onebucket": [("    if (ntaps <= 4)\n", "    if (ntaps < 0)\n"),
+                      ("    else if (ntaps <= 8)\n", "    else if (0)\n"),
+                      ("    else if (ntaps <= 12)\n", "    else if (0)\n"),
+                      ("    else if (ntaps <= 16)\n", "    else if (0)\n"),
+                      ("    else if (ntaps <= 24)\n", "    else if (0)\n")],
+        "nomac": [("acc[r] = mad_wide(tp[k], v, acc[r]);",
+                   "acc[r] += v;")],
+        "parts2": [("max(1, (local + 4 * TILE - 1) / (4 * TILE))",
+                    "max(1, (local + 2 * TILE - 1) / (2 * TILE))")],
+    },
+    "crc16_rows": {
+        "full": [],
+        "nofold": [("crc = fold_word(crc, wd, tab);", "crc ^= wd;")],
+        "noshift": [("total ^= pw.times(crc, tab);", "total ^= crc;")],
+        "onecluster": [("  return max(1, min(MAX_CLUSTER, (pieces + 8 * "
+                        "WARPS - 1) / (8 * WARPS)));", "  return 1;")],
+    },
+}
+
+
+def step0_build(cs, tree: Path, out: Path) -> dict:
+    """Build every variant of :data:`STEP0` that applies to ``tree``'s
+    sources into ``out``; returns ``{(source, variant): library path}`` and
+    prints the registers and spills of each kernel."""
+    import subprocess
+
+    from flacx_torch.kernels import build
+
+    csrc = tree / "flacx_torch/kernels/csrc"
+    jobs = {}
+    for source, variants in STEP0.items():
+        text = (csrc / f"{source}.cu").read_text()
+        for name, patches in variants.items():
+            if not all(old in text for old, _ in patches):
+                print(f"step0 {source}/{name}: patch does not apply to "
+                      f"{csrc}", flush=True)
+                continue
+            body = text
+            for old, new in patches:
+                body = body.replace(old, new)
+            src = out / f"{source}_{name}.cu"
+            src.write_text(body)
+            lib = out / f"lib{source}_{name}.so"
+            jobs[source, name] = (lib, subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+                 str(lib), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"step0 {key}: build failed\n{log}")
+        for entry, regs, st, ld in cs.ptxas_resources(log):
+            print(f"step0 {key[0]}/{key[1]} {entry}: {regs} registers, "
+                  f"{st} bytes spill stores, {ld} bytes spill loads",
+                  flush=True)
+        libs[key] = lib
+    return libs
+
+
+def event_ms(torch, fn, launches: int = 20, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the CUDA-event time of ``launches``
+    back-to-back ``fn()`` calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    return float(sorted(times)[rounds // 2])
+
+
+def trace_ms(torch, cs, runs: list, reps: int) -> list[float]:
+    """Median device ms of each ``(symbol, fn)`` of ``runs``, from one
+    profiler trace in which each ``fn`` runs ``reps`` times in turn: the
+    kernels whose names contain a symbol are taken in launch order, so
+    variants of one kernel (the same name) are told apart by their turn.
+    A trace that misses a record is taken again, up to three times."""
+    pad = torch.zeros(1, device="cuda")
+    for _, fn in runs:
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(cs.TRACE_PRELUDE):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            for _, fn in runs:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if "CUDA" in str(e.device_type)),
+                        key=lambda e: e.time_range.start)
+        by_symbol = {}
+        for symbol, _ in runs:
+            by_symbol.setdefault(symbol, [e.time_range.elapsed_us() / 1e3
+                                          for e in events
+                                          if symbol in e.name])
+        wanted = {}
+        for symbol, _ in runs:
+            wanted[symbol] = wanted.get(symbol, 0) + reps
+        if all(len(by_symbol[k]) == n for k, n in wanted.items()):
+            out, seen = [], {}
+            for symbol, _ in runs:
+                i = seen.get(symbol, 0)
+                seen[symbol] = i + reps
+                ts = sorted(by_symbol[symbol][i:i + reps])
+                out.append(ts[reps // 2])
+            return out
+    raise RuntimeError("profiler dropped records in three traces")
+
+
+
+def step0_calls(torch, cs, path: str) -> dict:
+    """``{(source, symbol): (tensors, ints, outputs, plain outputs)}``: the
+    held launches of ``path`` as the C entry points take them, the
+    outputs' buffers and the plain version's results."""
+    calls = {}
+    if path.startswith("seq"):
+        from flacx_torch.kernels import seqshard as k_seq
+
+        inp = cs.seq_inputs(torch, cs.hires_pcm(2, cs.SEQ_FRAMES),
+                            cs.SEQ_BLOCKS[path])
+        x, xw = inp["x"], inp["xw"]
+        rows, m = x.shape
+        s, lags = cs.SEQ_HOLD_SHARDS, cs.SEQ_LAGS
+        ac = torch.empty((rows, s, lags + 1), dtype=torch.float64,
+                         device=x.device)
+        fx = torch.empty((rows, s, 5), dtype=torch.int64, device=x.device)
+        lp = torch.empty((rows, s, 2), dtype=torch.int64, device=x.device)
+        t = inp["taps"].shape[-1]
+        calls["seqshard", "flacx_seq_autocorr"] = (
+            [xw, None, ac], [rows, m, s, 0, m, lags, 0], ac,
+            k_seq.seq_autocorr_plain(xw, lags, s))
+        calls["seqshard", "flacx_seq_fixed"] = (
+            [x, None, fx], [rows, m, s, 0, 0], fx, k_seq.seq_fixed_plain(x, s))
+        calls["seqshard", "flacx_seq_lpc"] = (
+            [x, None, inp["taps"], inp["shift"], inp["order"], lp],
+            [rows, m, s, 0, t], lp,
+            torch.stack(k_seq.seq_lpc_plain(x, inp["taps"], inp["shift"],
+                                            inp["order"], s), -1))
+    else:
+        import flacx_torch.decoder as dec
+        from flacx_torch.kernels import crc16_rows as k_crc
+
+        data = decode_stream(cs, path[len("decode_"):])
+        captured, _, restore = cs.spy_decoder(["crc16_rows"])
+        try:
+            dec.decode_array(data, device="cuda")
+        finally:
+            restore()
+        rows_t, lens = captured["crc16_rows"]
+        ok = torch.empty(rows_t.shape[0], dtype=torch.int32,
+                         device=rows_t.device)
+        all_ok = torch.ones(1, dtype=torch.int32, device=rows_t.device)
+        calls["crc16_rows", "flacx_crc16_rows"] = (
+            [rows_t, lens, k_crc._consts(rows_t.device), ok, all_ok],
+            list(rows_t.shape), ok, k_crc.crc16_rows_plain(rows_t, lens)[0])
+    return calls
+
+
+def step0(torch, cs, tree: Path, paths: list) -> None:
+    """Build, check and time Step 0's variants at each path's launches."""
+    import ctypes
+    import tempfile
+
+    card = cs.card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = step0_build(cs, tree, Path(tmp))
+        for path in paths:
+            calls = step0_calls(torch, cs, path)
+            stream = torch.cuda.current_stream().cuda_stream
+            ms, runs = {}, []
+            for (source, variant), lib in libs.items():
+                dll = ctypes.CDLL(str(lib))
+                for (src, symbol), (tens, ints, out, want) in calls.items():
+                    if src != source:
+                        continue
+                    fn = getattr(dll, symbol)
+                    fn.argtypes = ([ctypes.c_void_p] * len(tens)
+                                   + [ctypes.c_int] * len(ints)
+                                   + [ctypes.c_void_p])
+                    fn.restype = ctypes.c_int
+                    ptrs = [None if t is None else t.data_ptr()
+                            for t in tens]
+
+                    def run(fn=fn, ptrs=ptrs, ints=ints):
+                        rc = fn(*ptrs, *ints, stream)
+                        if rc:
+                            raise RuntimeError(f"{symbol}: CUDA error {rc}")
+                    run()
+                    torch.cuda.synchronize()
+                    if variant == "full":
+                        if symbol == "flacx_seq_autocorr":
+                            cs.seq_autoc_close(torch, out, want)
+                        else:
+                            cs.exact(torch, out, want)
+                    label = f"{symbol[6:]}/{variant}"
+                    ms[label] = event_ms(torch, run)
+                    runs.append((label, symbol[6:] + "_kernel", run))
+            prof = trace_ms(torch, cs, [(sym, fn) for _, sym, fn in runs], 20)
+            print(json.dumps({
+                "tree": str(tree), "path": path, "step0": ms,
+                "step0_profiler": {label: v for (label, _, _), v
+                                   in zip(runs, prof)},
+                "card": card}), flush=True)
 
 
 def capture_every_call(name: str):
@@ -228,9 +483,31 @@ def decode_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
         fn, args = getattr(mod, wrapper), captured[k]
         cs.exact(torch, fn(*args), getattr(mod, plain)(*args))
         launches[symbol] = (lambda f=fn, a=args: f(*a))
+    floor_launch(launches, captured.get("crc16_rows"))
     ms = cs.kernel_times(torch, launches, reps) if launches else {}
-    return {k: ms[DECODE_KERNELS[k][0]] if k in names else None
-            for k in kernels}
+    out = {k: ms[DECODE_KERNELS[k][0]] if k in names else None
+           for k in kernels}
+    if FLOOR in ms:
+        out["floor"] = ms[FLOOR]
+    return out
+
+
+#: the empty kernel's symbol (``crc16_rows.empty``)
+FLOOR = "flacx_empty_kernel"
+
+
+def floor_launch(launches: dict, crc_args) -> None:
+    """Add the empty kernel on ``crc16_rows``' grid (for the rows of
+    ``crc_args``, else one block) to a trace's ``launches``, where the
+    tree has it."""
+    from flacx_torch.kernels import crc16_rows as k_crc
+
+    if not launches or not hasattr(k_crc, "empty"):
+        return
+    import torch
+
+    f, w = crc_args[0].shape if crc_args else (1, 4)
+    launches[FLOOR] = lambda: k_crc.empty(torch.device("cuda"), f, w)
 
 
 def seq_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
@@ -253,9 +530,13 @@ def seq_ms(torch, cs, path: str, kernels: list, reps: int) -> dict:
             compare = cs.seq_autoc_close if k == "seq_autocorr" else cs.exact
             compare(torch, fn(*args[k]), plain(*args[k]))
             launches[SEQ_KERNELS[k]] = (lambda f=fn, a=args[k]: f(*a))
+    floor_launch(launches, None)
     ms = cs.kernel_times(torch, launches, reps) if launches else {}
-    return {k: ms[SEQ_KERNELS[k]] if k in SEQ_KERNELS else None
-            for k in kernels}
+    out = {k: ms[SEQ_KERNELS[k]] if k in SEQ_KERNELS else None
+           for k in kernels}
+    if FLOOR in ms:
+        out["floor"] = ms[FLOOR]
+    return out
 
 
 def main() -> int:
@@ -268,6 +549,9 @@ def main() -> int:
                     + sorted(SEQ_KERNELS),
                     default=["frame_pack"])
     ap.add_argument("--path", nargs="+", choices=PATHS, default=["headline"])
+    ap.add_argument("--step0", action="store_true",
+                    help="time the tree's seqshard and crc16_rows sources "
+                    "with phases stripped (the docstring's Step 0)")
     args = ap.parse_args()
     tree = str(Path(args.tree).resolve())
     sys.path.insert(0, tree)
@@ -290,6 +574,10 @@ def main() -> int:
 
     if not Path(flacx_torch.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"flacx_torch came from {flacx_torch.__file__}")
+    if args.step0:
+        step0(torch, cs, Path(tree), [p for p in args.path
+                                      if p.startswith(("seq", "decode_"))])
+        return 0
     card = cs.card_line()
     for path in args.path:
         if path.startswith(("decode_", "seq")):
