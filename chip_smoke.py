@@ -50,11 +50,15 @@ and runs these paths on the card, the encodes through ``BatchEncoder``:
   streams of the headline batch (at 256 and 1024 frames a batch), of the
   same PCM with fixed predictors only, of the two hi-res batches and of
   the two 25- to 32-bit batches (``reconstruct``'s int64 chunk route at
-  28 bits, its serial route at 32), each
+  both widths, from the walker's int32 state at 28 bits and its int64
+  state at 32), each
   bit-exact against its PCM with every batch on the device route (the
   ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` kernels), then the
   headline stream forced down the host parse (``reconstruct``'s serial
-  route, row ``reconstruct_serial@headline``);
+  route, row ``reconstruct_serial@headline``) and the serial route at 32
+  bits (row ``reconstruct_serial_wide@hibps32``: the first batch with
+  its state dropped, its launches from the 32-bit stream forced down the
+  host parse);
 * the corpus encode (``corpus``, ``BASELINE.json`` configs[3]):
   ``python -m flacx_torch encode-corpus`` in process at its defaults over
   1000 WAVs of 1-8 s drawn from the seed (16-bit/44.1 kHz stereo and
@@ -1331,6 +1335,7 @@ def decode_phase(torch, streams: dict) -> list[dict]:
     batch, decoded samples/s."""
     import flacx_torch.decoder as dec
     from flacx_torch.kernels import crc16_rows as k_crc
+    from flacx_torch.native import wide_state
 
     card = card_line()
     rows = []
@@ -1348,6 +1353,18 @@ def decode_phase(torch, streams: dict) -> list[dict]:
         route += "" if rec[12] else "_wide"
         if (label == "fixed") != route.startswith("fixed"):
             raise AssertionError(f"decode {label}: route {route}")
+        # past 24 bits the chunk route at every width, the walker's state
+        # int64 past 31 bits
+        if label in HIBPS:
+            want = torch.int64 if wide_state(bps, pcm.shape[1]) \
+                else torch.int32
+            got = None if rec[9] is None else rec[9].dtype
+            if route != "chunk_wide" or got != want:
+                raise AssertionError(f"decode {label}: route {route}, "
+                                     f"state {got}, expected {want}")
+        # the serial route at 32 bits: this batch with the state dropped
+        serial_args = (rec[:9] + (None, 0) + rec[11:]
+                       if label == "hibps32" else None)
         group = []
         for wrapper in DECODE_PATH:
             mode = f"_{route}" if wrapper == "reconstruct" else ""
@@ -1398,6 +1415,10 @@ def decode_phase(torch, streams: dict) -> list[dict]:
         rows += group
         if label == "headline":
             rows.append(serial_row(torch, data, pcm))
+        if serial_args is not None:
+            rows.append(serial_wide_row(torch, label, data, pcm, n,
+                                        serial_args))
+            del serial_args
     return rows
 
 
@@ -1687,6 +1708,38 @@ def serial_row(torch, data: bytes, pcm: np.ndarray) -> dict:
           f"bit-exact, routes {stats}, launches {counts}", flush=True)
     return row
 
+
+
+def serial_wide_row(torch, label: str, data: bytes, pcm: np.ndarray, n: int,
+                    args: tuple) -> dict:
+    """``reconstruct``'s serial route at 32 bits, the route the device
+    decode of ``label`` took before the walker's int64 sample state: held
+    against its plain version and timed on ``args`` (the stream's first
+    batch with the state dropped); its launches are those of the stream
+    forced down the host parse (``_decode_rows``, the serial route; none
+    on the device route), bit-exact."""
+    import flacx_torch.decoder as dec
+
+    bf = DECODE_BATCHES[label][0]
+    device_rows = dec._decode_rows_device
+    dec._decode_rows_device = lambda *args, **kwargs: None
+    stats = {}
+    try:
+        (_, got), counts = counted_run(
+            lambda: dec.decode_array(data, batch_frames=bf, device="cuda",
+                                     stats=stats), ("reconstruct",))
+    finally:
+        dec._decode_rows_device = device_rows
+    batches = -(-(len(pcm) // n) // bf)
+    if not np.array_equal(got, pcm) or stats.get("host") != batches:
+        raise AssertionError(f"serial decode {label}: routes {stats}")
+    row = hold(torch, f"reconstruct_serial_wide@{label}", "reconstruct",
+               args)
+    row["launches"], row["batches"] = counts["reconstruct"], batches
+    time_rows(torch, [row])
+    print(f"decode {label} forced down _decode_rows: {batches} batches, "
+          f"bit-exact, routes {stats}, launches {counts}", flush=True)
+    return row
 
 
 #: the file phase: a CD rip (3 minutes of 16-bit stereo at 44.1 kHz) and a

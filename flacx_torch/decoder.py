@@ -311,12 +311,11 @@ def _device_decode(rows: torch.Tensor, lens: torch.Tensor, scan: dict,
     return pcm, err_a | err_b, crc_ok
 
 
-def _state_interval(n: int, c: int, bps: int) -> int:
-    """The walker's sample-state interval (0: none, the serial route).
-    Sample state needs values that fit int32, and pays only where host
+def _state_interval(n: int) -> int:
+    """The walker's sample-state interval (0: none, the serial route), at
+    every sample width (int64 state past 31 bits): it pays only where host
     cores absorb the walker's inline IIR."""
-    if (bps + (1 if c == 2 else 0) > 31
-            or (os.cpu_count() or 1) < CHUNK_STATE_MIN_CORES):
+    if (os.cpu_count() or 1) < CHUNK_STATE_MIN_CORES:
         return 0
     # 256 measured fastest on the JAX package's headline LPC-12 signal;
     # shorter blocks take an eighth of the block, at least 64
@@ -353,7 +352,7 @@ def _decode_rows_device(rows: np.ndarray, lens: np.ndarray, n: int, c: int,
     # so the bytes stream to the card while the walker runs
     if rows_dev is None:
         rows_dev, = _upload([rows], torch.uint8, dev)
-    state_ss = _state_interval(n, c, bps)
+    state_ss = _state_interval(n)
     scan = scan_frames(rows, np.zeros(f, np.int64), n, c, bps,
                        state_interval=state_ss)
 
@@ -392,12 +391,17 @@ def _decode_rows_device(rows: np.ndarray, lens: np.ndarray, n: int, c: int,
     if fixed_max is not None:
         state_ss = 0
 
-    names = _SCAN_I32 + (("ckpt_state",) if state_ss > 0 else ())
+    # the sample state goes with the arrays of its width (int64 past 31
+    # bits: native.wide_state), after the warm-up so that it starts on a
+    # 256-byte boundary of the staging buffer
+    state = ("ckpt_state",) if state_ss > 0 else ()
+    wide = state_ss > 0 and scan.ckpt_state.dtype == np.int64
+    names = _SCAN_I32 + (() if wide else state)
+    names64 = ("warmup",) + (state if wide else ()) + ("const_val",)
     i32 = _upload([getattr(scan, k) for k in names]
                   + [lens.astype(np.int32)], torch.int32, dev)
-    i64 = _upload([scan.warmup, scan.const_val], torch.int64, dev)
-    tensors = dict(zip(names, i32))
-    tensors["warmup"], tensors["const_val"] = i64
+    i64 = _upload([getattr(scan, k) for k in names64], torch.int64, dev)
+    tensors = dict(zip(names, i32)) | dict(zip(names64, i64))
     # returned WITHOUT a sync: the caller reads the flags one batch later,
     # so the next batch's host walk overlaps this batch's device work
     return _device_decode(rows_dev, i32[-1], tensors, n, bps, t, use_i32,

@@ -17,7 +17,8 @@
 //   IIR routes: x[i] = r[i] + (i >= order ? (sum_j taps[j] x[i-1-j]) >>
 //          shift : 0), taps zero past the order and x[-1-j] = 0; with the
 //          walker's sample state (state_ss > 0), chunk m of SS samples
-//          starts from the window state[m] = x[m SS - 32 .. m SS - 1];
+//          starts from the window state[m] = x[m SS - 32 .. m SS - 1]
+//          (int32, or int64 past 31-bit samples on the int64 type);
 //   all-fixed route (fixed_max = L >= 0, no state): flacx's parallel
 //          integration.  The difference triangle on the warm-up prefix
 //          (position i in [1, order) becomes the min(i, L-1)-th
@@ -89,11 +90,11 @@ struct Args {
   const int32_t* wasted;
   const long long* warmup;   // [F, C, 32]
   const long long* const_val;  // [F, C]
-  const int32_t* state;      // [F, C, Ks, 32] or null
+  const void* state;         // [F, C, Ks, 32] (int64: state64) or null
   const int32_t* channel_code;  // [F]
   int32_t* pcm;              // [F, n, C]
   int32_t* err;              // [1]
-  int f, c, n, chunk, ks, lim, fixed_max;
+  int f, c, n, chunk, ks, lim, fixed_max, state64;
   int groups_per_block, ws, a16;  // IIR routes: G, window, 16-B copies
   unsigned inv_hp;           // ceil(2^32 / pairs a window)
   long long groups;          // F * ks
@@ -551,12 +552,15 @@ reconstruct_kernel_iir(Args a) {
     wasted = a.wasted[sub];
     cval = (Acc)a.const_val[sub];
   }
+  const long long s0 = (sub * a.ks + m) * 32 + 32 - T;  // the window's tail
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     tp[j] = live ? a.taps[sub * 32 + j] : 0;
-    rg.set(j, (live && a.state)
-                  ? (Acc)a.state[(sub * a.ks + m) * 32 + 32 - T + j]
-                  : (Acc)0);
+    Acc v = 0;
+    if (live && a.state)
+      v = a.state64 ? (Acc) static_cast<const long long*>(a.state)[s0 + j]
+                    : (Acc) static_cast<const int32_t*>(a.state)[s0 + j];
+    rg.set(j, v);
   }
   const long long* wrow = a.warmup + sub * 32;
   // the guard's bound (none: past every int64)
@@ -685,7 +689,8 @@ int launch(Args& a, int t, cudaStream_t stream) {
 
 // vals [f, c, n] int64; taps [f, c, 32]; shift, order, kind, wasted
 // [f, c]; warmup [f, c, 32] int64; const_val [f, c] int64; state
-// [f, c, ks, 32] or null (then ks = 1 and the chunk is n); channel_code
+// [f, c, ks, 32] or null (then ks = 1 and the chunk is n), int32, or
+// int64 where state64 (with the int64 working type only); channel_code
 // [f]; pcm [f, n, c] int32; err one int32 the caller zeroed.  t the tap
 // bucket, wide: int64 working type, lim < 0: no residual guard, chunk
 // the state interval (ignored without state), fixed_max: the all-fixed
@@ -696,13 +701,15 @@ FLACX_API int flacx_reconstruct(const long long* vals, const int32_t* taps,
                                 const int32_t* kind, const int32_t* wasted,
                                 const long long* warmup,
                                 const long long* const_val,
-                                const int32_t* state,
+                                const void* state,
                                 const int32_t* channel_code, int32_t* pcm,
                                 int32_t* err, int f, int c, int n, int t,
                                 int wide, int lim, int chunk, int ks,
-                                int fixed_max, cudaStream_t stream) {
+                                int fixed_max, int state64,
+                                cudaStream_t stream) {
   if (f <= 0 || c < 1 || c > 8 || n < 1 || lim > 62 || fixed_max > 4 ||
-      (fixed_max >= 0 && state != nullptr))
+      (fixed_max >= 0 && state != nullptr) ||
+      (state64 && (!wide || state == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (state == nullptr) {
     chunk = n;
@@ -715,7 +722,8 @@ FLACX_API int flacx_reconstruct(const long long* vals, const int32_t* taps,
                   chunk % 2 == 0;
   Args a{vals, taps, shift, order, kind, wasted, warmup, const_val, state,
          channel_code, pcm, err, f, c, n, chunk, ks, lim,
-         fixed_max < 0 ? -1 : fixed_max, 1, 0, a16, 0u, (long long)f * ks};
+         fixed_max < 0 ? -1 : fixed_max, state64 ? 1 : 0, 1, 0, a16, 0u,
+         (long long)f * ks};
   return wide ? launch<long long>(a, t, stream)
               : launch<int32_t>(a, t, stream);
 }

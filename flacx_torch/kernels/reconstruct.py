@@ -12,7 +12,8 @@ batch (``fixed_max``) as flacx's parallel integration, one block a frame;
 else the IIR, one thread per (frame, channel, chunk of ``state_ss``
 samples) where the walker gave sample state, or per (frame, channel) over
 all samples, residuals staged through shared memory; int32 or int64
-working type (``use_i32``).
+working type (``use_i32``), the state int32 or (on the int64 type only)
+int64.
 """
 
 from __future__ import annotations
@@ -92,8 +93,9 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
         binomial taps); shift, order, kind, wasted: int32 ``[F, C]``.
       warmup: int64 ``[F, C, 32]``; const_val: int64 ``[F, C]``.
       channel_code: int32 ``[F]``.
-      state: int32 ``[F, C, Ks, 32]`` walker sample state every
-        ``state_ss`` samples, or None.
+      state: int32 or int64 ``[F, C, Ks, 32]`` walker sample state every
+        ``state_ss`` samples, or None; int64 state only with the int64
+        working type (``use_i32`` False), else ValueError.
       t: the tap bucket (:func:`tap_bucket`), taps zero past it.
       use_i32: the int32 working type (exact under flacx's bound).
       lim: :func:`residual_limit`; ``err`` is set where a residual passes
@@ -104,6 +106,9 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
     """
     if fixed_max is not None and state is not None:
         raise ValueError("reconstruct: the all-fixed route takes no state")
+    state64 = state is not None and state.dtype == torch.int64
+    if state64 and use_i32:
+        raise ValueError("reconstruct: int64 state on the int32 route")
     if vals.device.type == "cpu":
         return reconstruct_plain(vals, taps, shift, order, kind, wasted,
                                  warmup, const_val, channel_code, state,
@@ -121,7 +126,8 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
     ks = 1
     if state is not None:
         ks = state.shape[2]
-        check(state, "state", torch.int32, (f, c, ks, 32), dev)
+        check(state, "state", torch.int64 if state64 else torch.int32,
+              (f, c, ks, 32), dev)
         if ks != -(-n // state_ss):
             raise ValueError(f"reconstruct: {ks} state windows for block "
                              f"{n} at interval {state_ss}")
@@ -131,11 +137,11 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
         raise ValueError(f"reconstruct: fixed_max {fixed_max}")
     pcm = torch.empty((f, n, c), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
-    launch(bind("reconstruct", "flacx_reconstruct", 12, 9),
+    launch(bind("reconstruct", "flacx_reconstruct", 12, 10),
            [vals, taps, shift, order, kind, wasted, warmup, const_val, state,
             channel_code, pcm, err],
            [f, c, n, t, int(not use_i32), lim, state_ss, ks,
-            -1 if fixed_max is None else fixed_max],
+            -1 if fixed_max is None else fixed_max, int(state64)],
            "reconstruct")
     reconstruct.launches += 1
     return pcm, err

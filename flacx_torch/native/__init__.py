@@ -37,7 +37,7 @@ def lib() -> ctypes.CDLL:
             cdll.fxt_parse_frames.argtypes = ([_P, _I64, _I64, _P, _I32, _I32,
                                                _I32] + [_P] * 9)
             cdll.fxt_scan_frames.restype = _I64
-            cdll.fxt_scan_frames.argtypes = ([_P, _I64, _I64, _P] + [_I32] * 5
+            cdll.fxt_scan_frames.argtypes = ([_P, _I64, _I64, _P] + [_I32] * 6
                                              + [_P] * 17)
             _lib = cdll
     return _lib
@@ -97,6 +97,13 @@ def scan_candidates(data: np.ndarray, first: int
             bsizes[:cnt])
 
 
+def wide_state(bps: int, channels: int) -> bool:
+    """Whether the walker's sample state is int64: past 31 bits with a
+    stereo side channel counted (``bps + 1`` in stereo), where a valid
+    stream's samples may not fit int32."""
+    return bps + (1 if channels == 2 else 0) > 31
+
+
 class ScannedFrames:
     """Structure-of-arrays output of the C++ walker (device decode path)."""
 
@@ -120,10 +127,11 @@ def scan_frames(data: np.ndarray, start_bits: np.ndarray, block_size: int,
     on the device (``flacx_torch.kernels.bit_unpack``).  With
     ``state_interval > 0`` the walker also runs the integer reconstruction
     IIR inline and emits the last-32-samples window before every
-    ``state_interval`` boundary (``ckpt_state [F, C, Ks, 32]`` int32), so
-    the device can reconstruct all chunks of a batch in parallel: only
-    valid while sample values fit int32 (``bps + 1 <= 31``).  Raises
-    ValueError on malformed input.
+    ``state_interval`` boundary (``ckpt_state [F, C, Ks, 32]``), so the
+    device can reconstruct all chunks of a batch in parallel: int32 where
+    every sample fits it, int64 past 31 bits (:func:`wide_state`; the
+    walker's history has the same type).  Raises ValueError on malformed
+    input.
     """
     f = data.shape[0]
     n, c, s, ss = block_size, channels, ckpt_interval, state_interval
@@ -131,6 +139,7 @@ def scan_frames(data: np.ndarray, start_bits: np.ndarray, block_size: int,
     ks = (n + ss - 1) // ss if ss > 0 else 0
     data = np.ascontiguousarray(data, np.uint8)
     start = np.ascontiguousarray(start_bits, np.int64)
+    wide = wide_state(bps, c)
 
     def i32(*shape):
         return np.zeros(shape, np.int32)
@@ -142,11 +151,13 @@ def scan_frames(data: np.ndarray, start_bits: np.ndarray, block_size: int,
         const_val=np.zeros((f, c), np.int64), ckpt_pos=i32(f, c, k),
         ckpt_param=i32(f, c, k), ckpt_esc=i32(f, c, k),
         ckpt_inesc=i32(f, c, k),
-        ckpt_state=i32(f, c, ks, 32) if ss > 0 else None,
+        ckpt_state=np.zeros((f, c, ks, 32), np.int64 if wide else np.int32)
+        if ss > 0 else None,
         end_bits=np.zeros(f, np.int64), ckpt_interval=s, state_interval=ss,
         fbps=i32(f))
     rc = lib().fxt_scan_frames(
         _ptr(data), f, data.shape[1], _ptr(start), n, c, bps, s, ss,
+        int(wide),
         *(_ptr(getattr(out, name)) for name in (
             "channel_code", "kind", "order", "shift", "wasted", "po",
             "width", "taps", "warmup", "const_val", "ckpt_pos", "ckpt_param",

@@ -14,6 +14,7 @@
 #include <cstdint>
 #include <cstring>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 extern "C" {
@@ -436,6 +437,31 @@ struct FastCursor {
     }
 };
 
+// One step of the inline reconstruction IIR: val + (Σ_t tp[t]·hp[-1-t] >>
+// sh), the history H int32 (every sample of the stream fits it) or int64.
+// The int64 MAC and add run in uint64, so a malformed stream wraps mod
+// 2^64 as the reconstruct kernel's does, where signed overflow would be
+// undefined.  OB: tap-count bucket — taps are zero past the true order, so
+// the fixed-trip MAC over OB entries is exact for any order <= OB and
+// lets the compiler unroll/vectorize it.
+template <int OB, typename H>
+inline H iir_step(int64_t val, const int32_t* tp, int32_t sh, const H* hp) {
+    if constexpr (sizeof(H) == 4) {
+        int64_t acc = 0;
+        for (int t = 0; t < OB; ++t)
+            acc += static_cast<int64_t>(tp[t]) * hp[-1 - t];
+        return static_cast<int32_t>(val + (acc >> sh));
+    } else {
+        uint64_t acc = 0;
+        for (int t = 0; t < OB; ++t)
+            acc += static_cast<uint64_t>(static_cast<int64_t>(tp[t]))
+                   * static_cast<uint64_t>(hp[-1 - t]);
+        return static_cast<int64_t>(
+            static_cast<uint64_t>(val)
+            + static_cast<uint64_t>(static_cast<int64_t>(acc) >> sh));
+    }
+}
+
 // Advance (and with WS, decode + reconstruct) `count` residual samples of
 // one Rice/escape segment — the event-free inner loop of the walker.  The
 // caller has segmented the walk so that no checkpoint, sample-state or
@@ -443,13 +469,11 @@ struct FastCursor {
 // or boundary checks remain here.
 //
 // WS: maintain the decoded-sample history `hp` (the inline reconstruction
-// IIR, hp[i] = x[j+i]); OB: tap-count bucket — taps are zero past the true
-// order, so the fixed-trip MAC over OB entries is exact for any order
-// <= OB and lets the compiler unroll/vectorize it.
-template <bool WS, int OB>
+// IIR, hp[i] = x[j+i]) by iir_step over the OB-tap bucket.
+template <bool WS, int OB, typename H>
 inline bool walk_run(FastCursor& cur, int64_t count, bool inesc,
                      int64_t param, int64_t esc, const int32_t* tp,
-                     int32_t sh, int32_t* hp) {
+                     int32_t sh, H* hp) {
     if (inesc) {
         if (!WS) {
             cur.pos += esc * count;
@@ -457,10 +481,7 @@ inline bool walk_run(FastCursor& cur, int64_t count, bool inesc,
         }
         for (int64_t i = 0; i < count; ++i) {
             const int64_t val = cur.read_signed(static_cast<int>(esc));
-            int64_t acc = 0;
-            for (int t = 0; t < OB; ++t)
-                acc += static_cast<int64_t>(tp[t]) * hp[i - 1 - t];
-            hp[i] = static_cast<int32_t>(val + (acc >> sh));
+            hp[i] = iir_step<OB>(val, tp, sh, hp + i);
         }
         return true;
     }
@@ -493,19 +514,17 @@ inline bool walk_run(FastCursor& cur, int64_t count, bool inesc,
         if (WS) {
             const int64_t val = static_cast<int64_t>(u >> 1)
                                 ^ -static_cast<int64_t>(u & 1);
-            int64_t acc = 0;
-            for (int t = 0; t < OB; ++t)
-                acc += static_cast<int64_t>(tp[t]) * hp[i - 1 - t];
-            hp[i] = static_cast<int32_t>(val + (acc >> sh));
+            hp[i] = iir_step<OB>(val, tp, sh, hp + i);
         }
     }
     return true;
 }
 
 // Order-bucket dispatch for the state-maintaining run.
+template <typename H>
 inline bool walk_run_ws(int ob, FastCursor& cur, int64_t count, bool inesc,
                         int64_t param, int64_t esc, const int32_t* tp,
-                        int32_t sh, int32_t* hp) {
+                        int32_t sh, H* hp) {
     switch (ob) {
         case 4:  return walk_run<true, 4>(cur, count, inesc, param, esc,
                                           tp, sh, hp);
@@ -537,12 +556,16 @@ extern "C" {
 // boundary into ckpt_state [F, C, Ks, 32] (Ks = ceil(n/state_interval)).
 // These sample-state checkpoints let the device reconstruct all
 // state_interval-sample chunks of a batch IN PARALLEL instead of one
-// block-length serial scan.  Sample values of a valid stream fit int32
-// whenever bps + 1 <= 31; callers must not request state otherwise.
+// block-length serial scan.  One pointer, two widths: with state_wide = 0
+// the history and ckpt_state are int32 (a valid stream's samples fit it
+// whenever bps + 1 <= 31: the caller's rule is bps + (a stereo side
+// channel) <= 31), with state_wide = 1 both are int64 (every width up to a
+// 33-bit side channel), their MAC and add wrapping mod 2^64.
 int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
                           int64_t row_stride, const int64_t* start_bits,
                           int32_t block_size, int32_t channels, int32_t bps,
                           int32_t ckpt_interval, int32_t state_interval,
+                          int32_t state_wide,
                           int32_t* channel_code,          // [F]
                           int32_t* kind, int32_t* order,  // [F,C]
                           int32_t* shift, int32_t* wasted,
@@ -554,7 +577,7 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
                           int32_t* ckpt_param,            // [F,C,K]
                           int32_t* ckpt_esc,              // [F,C,K]
                           int32_t* ckpt_inesc,            // [F,C,K]
-                          int32_t* ckpt_state,            // [F,C,Ks,32]
+                          void* ckpt_state,               // [F,C,Ks,32]
                           int64_t* end_bits,              // [F]
                           int32_t* fbps) {                // [F] or null
     const int64_t n = block_size;
@@ -564,10 +587,12 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
     const int64_t KS = SS > 0 ? (n + SS - 1) / SS : 0;
     // Per-row body; rows are fully independent (each writes disjoint
     // output slices), so the batch walk is threaded across cores below.
-    // `hist` is a per-thread scratch of 32 zeros + n int32 decoded
-    // samples (the 32-slot zero lead backs both the MAC's pre-warmup
-    // reads and the device contract that pre-stream state is zero).
-    auto scan_one = [&](int64_t r, int32_t* hist) -> int64_t {
+    // `hist` is a per-thread scratch of 32 zeros + n decoded samples of
+    // the history type H (the 32-slot zero lead backs both the MAC's
+    // pre-warmup reads and the device contract that pre-stream state is
+    // zero).
+    auto scan_one = [&](int64_t r, auto* hist) -> int64_t {
+        using H = std::remove_pointer_t<decltype(hist)>;
         FastCursor cur{data + r * row_stride, row_stride, start_bits[r]};
 
         // ---- frame header (sync/CRC already validated by the scanner)
@@ -608,7 +633,8 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
             int32_t* cpar = ckpt_param + sub * K;
             int32_t* cesc = ckpt_esc + sub * K;
             int32_t* cine = ckpt_inesc + sub * K;
-            int32_t* cst = SS > 0 ? ckpt_state + sub * KS * 32 : nullptr;
+            H* cst = SS > 0 ? static_cast<H*>(ckpt_state) + sub * KS * 32
+                            : nullptr;
 
             if (cur.read(1) != 0) return r + 1;
             uint32_t type_code = static_cast<uint32_t>(cur.read(6));
@@ -688,7 +714,7 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
             // the true order, so the bucketed MAC is exact)
             const int ob = o <= 4 ? 4 : o <= 8 ? 8 : o <= 12 ? 12
                            : o <= 16 ? 16 : 32;
-            int32_t* h = hist + 32;          // 32-slot zero lead
+            H* h = hist + 32;                // 32-slot zero lead
             if (want_state)
                 for (int i = 0; i < 32; ++i) hist[i] = 0;
 
@@ -712,7 +738,7 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
                     // window BEFORE sample j: slot i = x[j-32+i] (the
                     // zero lead supplies zeros for j < 32, matching the
                     // device scan's zero init)
-                    int32_t* w32 = cst + (j / SS) * 32;
+                    H* w32 = cst + (j / SS) * 32;
                     for (int i = 0; i < 32; ++i) w32[i] = h[j - 32 + i];
                     next_state += SS;
                 }
@@ -720,7 +746,7 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
 
             for (int64_t j = 0; j < o; ++j) {  // warmup positions
                 emit_events(j);
-                if (want_state) h[j] = static_cast<int32_t>(wu[j]);
+                if (want_state) h[j] = static_cast<H>(wu[j]);
             }
             int64_t j = o;
             for (int64_t p = 0; p < nparts; ++p) {
@@ -736,9 +762,9 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
                     const bool okr = want_state
                         ? walk_run_ws(ob, cur, run_end - j, inesc, param,
                                       esc, tp, shift[sub], h + j)
-                        : walk_run<false, 4>(cur, run_end - j, inesc,
-                                             param, esc, nullptr, 0,
-                                             nullptr);
+                        : walk_run<false, 4, H>(cur, run_end - j, inesc,
+                                                param, esc, nullptr, 0,
+                                                nullptr);
                     if (!okr || cur.pos > bit_limit) return r + 1;
                     j = run_end;
                     if (j < limit) emit_events(j);
@@ -755,38 +781,44 @@ int64_t fxt_scan_frames(const uint8_t* data, int64_t n_rows,
                                              n_rows / 16))
         : 1;
     const size_t hist_len = static_cast<size_t>(n) + 32;
-    if (nt <= 1) {
-        std::vector<int32_t> hist(hist_len);
-        for (int64_t r = 0; r < n_rows; ++r) {
-            const int64_t e = scan_one(r, hist.data());
-            if (e) return e;
-        }
-        return 0;
-    }
-    std::atomic<int64_t> first_err{0};
-    std::vector<std::thread> threads;
-    const int64_t chunk = (n_rows + nt - 1) / nt;
-    for (int t = 0; t < nt; ++t) {
-        const int64_t lo = t * chunk;
-        const int64_t hi = std::min<int64_t>(lo + chunk, n_rows);
-        if (lo >= hi) break;
-        threads.emplace_back([&, lo, hi]() {
-            std::vector<int32_t> hist(hist_len);
-            for (int64_t r = lo; r < hi; ++r) {
-                if (first_err.load(std::memory_order_relaxed)) return;
+    // the batch walk with history type H (a value of it selects it)
+    auto scan_rows = [&](auto h_type) -> int64_t {
+        using H = decltype(h_type);
+        if (nt <= 1) {
+            std::vector<H> hist(hist_len);
+            for (int64_t r = 0; r < n_rows; ++r) {
                 const int64_t e = scan_one(r, hist.data());
-                if (e) {
-                    int64_t cur_e = first_err.load();
-                    while ((cur_e == 0 || e < cur_e)
-                           && !first_err.compare_exchange_weak(cur_e, e)) {
-                    }
-                    return;
-                }
+                if (e) return e;
             }
-        });
-    }
-    for (auto& th : threads) th.join();
-    return first_err.load();
+            return 0;
+        }
+        std::atomic<int64_t> first_err{0};
+        std::vector<std::thread> threads;
+        const int64_t chunk = (n_rows + nt - 1) / nt;
+        for (int t = 0; t < nt; ++t) {
+            const int64_t lo = t * chunk;
+            const int64_t hi = std::min<int64_t>(lo + chunk, n_rows);
+            if (lo >= hi) break;
+            threads.emplace_back([&, lo, hi]() {
+                std::vector<H> hist(hist_len);
+                for (int64_t r = lo; r < hi; ++r) {
+                    if (first_err.load(std::memory_order_relaxed)) return;
+                    const int64_t e = scan_one(r, hist.data());
+                    if (e) {
+                        int64_t cur_e = first_err.load();
+                        while ((cur_e == 0 || e < cur_e)
+                               && !first_err.compare_exchange_weak(cur_e,
+                                                                   e)) {
+                        }
+                        return;
+                    }
+                }
+            });
+        }
+        for (auto& th : threads) th.join();
+        return first_err.load();
+    };
+    return state_wide ? scan_rows(int64_t{0}) : scan_rows(int32_t{0});
 }
 
 }  // extern "C"

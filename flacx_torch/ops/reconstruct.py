@@ -76,12 +76,15 @@ def reconstruct_predicted_chunks(residual: torch.Tensor, taps: torch.Tensor,
       residual: ``[F, C, n]`` int (contract of
         :func:`reconstruct_predicted`).
       taps: ``[F, C, T]`` int32; shift, order: ``[F, C]`` int32.
-      state: ``[F, C, Ks, 32]`` int32 — ``state[..., m, i]`` is sample
+      state: ``[F, C, Ks, 32]`` int32, or int64 (the walker's state past
+        31 bits; int64 ``dtype`` only) — ``state[..., m, i]`` is sample
         ``x[m·SS - 32 + i]`` (zero for negative indices).
       state_interval: SS; need not divide ``n``.
     Returns:
       ``[F, C, n]`` reconstructed samples in ``dtype``.
     """
+    if state.dtype == torch.int64 and dtype != torch.int64:
+        raise ValueError("int64 sample state needs the int64 working type")
     f, c, n = residual.shape
     t = taps.shape[-1]
     ss = state_interval

@@ -26,7 +26,9 @@ escapes of 0 and 7 bits and a 70-bit Rice quotient (the error flag),
 ``bit_unpack`` blocks whose staged span crosses subframes and frames of
 unequal length, with checkpoints past the row's end and before the span,
 reconstruction from arbitrary inputs at orders 0-32 in every tap bucket
-on both routes and working types, the all-fixed route at block 16384 on
+on both routes and working types, the chunk route from int64 state (past
+±2^31, a side channel near ±2^32; refused on the int32 type), the
+all-fixed route at block 16384 on
 1-8 channels with integrations that wrap and on blocks of 1, 3 and 4097
 samples at every integration count, a chunk-route batch of the
 headline's size (288 blocks), and CRC-16 rows of every length mod 4 up to
@@ -935,6 +937,103 @@ def test_reconstruct_kernel_chunk_many_blocks(dev, t_bucket, use_i32):
                      t["wasted"], t["warmup"], t["const_val"], t["code"],
                      t["state"], ss, t_bucket, use_i32,
                      k_rec.residual_limit(16, use_i32))
+
+
+#: the tone of the wide-state tests, radians a sample, and its order-2
+#: recurrence x[i] = 2 cos(w) x[i-1] - x[i-2] at shift 14
+TONE = 1.3
+TONE_TAPS = (round(2 * np.cos(TONE) * (1 << 14)), -(1 << 14))
+
+
+def wide_state_inputs(rng, dev, c: int, n: int, ss: int,
+                      bucket: int) -> dict:
+    """A chunk-route batch of 6 frames with int64 sample state: orders up
+    to the tap bucket (one at it), random taps, residuals, warm-up values,
+    constants and windows past ±2^31 (the IIR wraps int64 as the plain
+    version does); frames 0-2 a tone near ±2^32 in the side channel of left/side,
+    side/right and mid/side (channel 0 where mono): windows of the tone's
+    samples, residuals of a few units, its order-2 recurrence."""
+    f, ks = 6, -(-n // ss)
+    kind = np.full((f, c), 3)
+    order = rng.integers(1, bucket + 1, (f, c))
+    order.flat[-1] = bucket
+    taps = np.where(np.arange(32) < order[..., None],
+                    rng.integers(-2 ** 14, 2 ** 14, (f, c, 32)), 0)
+    shift = rng.choice([0, 9, 15], (f, c))
+    vals = rng.integers(-2 ** 33, 2 ** 33, (f, c, n))
+    state = rng.integers(-2 ** 33, 2 ** 33, (f, c, ks, 32))
+    code = (np.array([8, 9, 10, 1, 8, 10]) if c == 2
+            else np.full(f, c - 1))
+    kind[3, 0], order[3, 0] = 0, 0                    # a constant
+    kind[4, 0], order[4, 0] = 2, 3                    # fixed order 3
+    taps[4, 0] = 0
+    taps[4, 0, :3] = FIXED_PREDICTOR_TAPS[3][:3]
+    shift[kind != 3] = 0
+    i = np.arange(n)
+    for fr in range(3):
+        ch = 0 if c == 1 or code[fr] == 9 else 1
+        order[fr, ch], shift[fr, ch] = 2, 14
+        taps[fr, ch] = 0
+        taps[fr, ch, :2] = TONE_TAPS
+        vals[fr, ch] = rng.integers(-8, 9, n)
+        pos = (np.arange(ks)[:, None] * ss - 32 + np.arange(32))
+        state[fr, ch] = np.where(pos >= 0, (np.sin(pos * TONE + fr)
+                                            * 0.95 * 2 ** 32), 0)
+    vals[i < order[..., None]] = 0
+    vals[kind == 0] = 0
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in dict(
+                vals=vals, taps=taps.astype(np.int32),
+                shift=shift.astype(np.int32), order=order.astype(np.int32),
+                kind=kind.astype(np.int32),
+                wasted=rng.integers(0, 3, (f, c)).astype(np.int32),
+                warmup=rng.integers(-2 ** 32, 2 ** 32, (f, c, 32)),
+                const_val=rng.integers(-2 ** 32, 2 ** 32, (f, c)),
+                code=code.astype(np.int32), state=state).items()}
+
+
+@pytest.mark.parametrize("t_bucket", k_rec.TAP_BUCKETS)
+@pytest.mark.parametrize("n,c", [(576, 2), (4608, 2), (1152, 1)])
+def test_reconstruct_kernel_int64_state(dev, n, c, t_bucket):
+    """The chunk route from int64 sample state (the walker's past 31
+    bits) on the int64 working type in every tap bucket: windows,
+    residuals, warm-up values and constants past ±2^31, and a side channel
+    near ±2^32 in each stereo mode (the MAC's high parts on every
+    sample)."""
+    rng = np.random.default_rng(n * 100 + c * 10 + t_bucket)
+    ss = state_interval(n)
+    t = wide_state_inputs(rng, dev, c, n, ss, t_bucket)
+    assert t["state"].dtype == torch.int64
+    assert int(t["state"].abs().max()) > 2 ** 32 - 2 ** 30
+    hold_reconstruct(t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+                     t["wasted"], t["warmup"], t["const_val"], t["code"],
+                     t["state"], ss, t_bucket, False, -1)
+
+
+def test_reconstruct_kernel_refuses_int64_state_on_int32(dev):
+    """The int32 working type never takes int64 state: the wrapper
+    raises, and the library's entry point refuses the pairing itself."""
+    from flacx_torch.kernels.build import bind
+
+    rng = np.random.default_rng(7)
+    f, c, n = 6, 2, 576
+    ss = state_interval(n)
+    t = wide_state_inputs(rng, dev, c, n, ss, 4)
+    args = (t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
+            t["wasted"], t["warmup"], t["const_val"], t["code"])
+    before = k_rec.reconstruct.launches
+    with pytest.raises(ValueError, match="int64 state"):
+        k_rec.reconstruct(*args, t["state"], ss, 4, True, 29)
+    assert k_rec.reconstruct.launches == before
+    pcm = torch.empty((f, n, c), dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = bind("reconstruct", "flacx_reconstruct", 12, 10)
+    ptrs = [x.data_ptr() for x in args[:8] + (t["state"], args[8], pcm, err)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # wide 0 with state64 1: cudaErrorInvalidValue
+    assert fn(*ptrs, f, c, n, 4, 0, 29, ss, -(-n // ss), -1, 1, stream) == 1
+    assert fn(*ptrs, f, c, n, 4, 1, -1, ss, -(-n // ss), -1, 1, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("n,c", [(192, 1), (1152, 2), (4608, 2)])

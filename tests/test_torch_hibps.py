@@ -232,25 +232,29 @@ def test_file_equals_flacx(case, monkeypatch):
 
 def reconstruct_route(monkeypatch) -> list:
     """Records the route of each ``reconstruct`` call: ``chunk`` (the
-    walker's sample state) or ``serial``."""
+    walker's sample state), ``serial``, or ``fixed`` (an all-fixed batch,
+    which takes no state at any width)."""
     routes = []
     original = k_rec.reconstruct
 
     def spy(*args):
-        routes.append("serial" if args[9] is None else "chunk")
+        routes.append("fixed" if args[14:] and args[14] is not None else
+                      "serial" if args[9] is None else "chunk")
         return original(*args)
     monkeypatch.setattr(decoder, "reconstruct", spy)
     return routes
 
 
-def test_decode_matches_pcm_and_flacx(case, monkeypatch):
+@pytest.mark.parametrize("route", ["chunk", "serial"])
+def test_decode_matches_pcm_and_flacx(case, monkeypatch, route):
     """flacx's streams through ``decode_array`` and ``decode_stream`` on
     the port's device route (plain versions): bit-exact against the PCM
-    and flacx's sequential decoder; the chunk route (sample state) where
-    a stereo side channel fits 31 bits, the serial route at 31-bit stereo
-    and at 32 bits."""
+    and flacx's sequential decoder, on the chunk route (the walker's
+    sample state, int64 past 31 bits) at every width where the host has
+    the cores, and on the serial route where it has not."""
     name, pcm, kw, data = case
-    monkeypatch.setattr(decoder, "CHUNK_STATE_MIN_CORES", 1)
+    monkeypatch.setattr(decoder, "CHUNK_STATE_MIN_CORES",
+                        1 if route == "chunk" else 10 ** 6)
     routes = reconstruct_route(monkeypatch)
     stats = {}
     _, got = decoder.decode_array(data, batch_frames=BATCH, device="cpu",
@@ -258,8 +262,7 @@ def test_decode_matches_pcm_and_flacx(case, monkeypatch):
     np.testing.assert_array_equal(got, pcm)
     assert stats.get("device") and not stats.get("host") \
         and not stats.get("sequential"), stats
-    eff = kw["bps"] + (1 if kw["channels"] == 2 else 0)
-    assert set(routes) == {"chunk" if eff <= 31 else "serial"}, routes
+    assert set(routes) - {"fixed"} == {route}, routes
     _, chunks = decoder.decode_stream(io.BytesIO(data), batch_frames=3,
                                       device="cpu")
     np.testing.assert_array_equal(np.concatenate(list(chunks)), pcm)

@@ -5,7 +5,8 @@
                                     conformance|decode] [--block N]
                                    [--batches 3]
                                    [--batch-frames 256]
-                                   [--out profile_out]
+                                   [--stream headline|hibps28|hibps32]
+                                   [--tree DIR] [--out profile_out]
 
 Encodes one batch with ``BatchEncoder.encode_batch_device`` under
 ``torch.profiler``.  ``--config headline`` (the default) is 1024 frames
@@ -19,12 +20,15 @@ stereo frames, ``--config hires6`` of 64 5.1 frames, the PCM of
 ``chip_smoke.py``'s hi-res phases, ``--config conformance`` the headline
 batch with ``conformance=True`` (the reference encoder's choices).
 ``--config decode`` decodes the
-headline batch's 1024 frames, encoded on the card into a FLAC stream,
-with ``decoder.decode_array`` at ``--batch-frames`` frames a batch (the
+1024 frames of ``--stream`` (the headline batch, or the 28- or 32-bit
+stereo batch of ``chip_smoke.py``'s ``hibps`` phase at the headline
+settings), encoded on the card into a FLAC stream, with
+``decoder.decode_array`` at ``--batch-frames`` frames a batch (the
 CLI's default 256), ``--batches`` times; its numbers are a decode batch's
 and its host stages the decoder's (frame scan, row staging, the C++
 walker, the H2D copies, the kernels' enqueue, the flags' read, the D2H
-copy).  Prints:
+copy).  ``--tree DIR`` profiles the ``flacx_torch`` package of another
+checkout (e.g. the parent commit's) with this checkout's data.  Prints:
 the wall time per batch, the device time per batch (sum of kernel times)
 and the device's idle share of the window, the kernel time and host time
 of each pipeline stage (profiler ranges around the stage functions), and
@@ -37,13 +41,14 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
 
 #: stage name → (module, attribute) of the function the stage runs
 STAGES = {
@@ -125,8 +130,18 @@ def main() -> int:
     ap.add_argument("--block", type=int, default=4608,
                     help="block size of --config best")
     ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--stream", choices=("headline", "hibps28", "hibps32"),
+                    default="headline", help="the stream of --config decode")
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="checkout whose flacx_torch to profile")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
+    # the package from --tree, chip_smoke.py's data from this checkout
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["chip_smoke"])
 
     import torch
     if not torch.cuda.is_available():
@@ -167,26 +182,30 @@ def main() -> int:
 
 
 def profile_decode(torch, args) -> int:
-    """``--config decode``: the headline frames as a FLAC stream, decoded
-    ``args.batches`` times under the profiler."""
-    from chip_smoke import B, N, SEED, blocks_of, card_line, flac_stream, \
-        synth_pcm
+    """``--config decode``: the frames of ``args.stream`` as a FLAC
+    stream, decoded ``args.batches`` times under the profiler."""
+    from chip_smoke import B, HIBPS, N, SEED, blocks_of, card_line, \
+        flac_stream, synth_pcm
     from flacx_torch import decoder
     from flacx_torch.encoder import BatchEncoder, EncoderConfig
 
-    pcm = synth_pcm(np.random.default_rng(SEED), N * B)
-    frames = BatchEncoder(EncoderConfig(block_size=N, max_lpc_order=12),
-                          batch_frames=B).encode_frames(blocks_of(pcm, N), 0)
-    data = flac_stream(frames, pcm, 44100, 16, N)
+    bps = HIBPS.get(args.stream, 16)
+    pcm = synth_pcm(np.random.default_rng(SEED + (bps if bps > 16 else 0)),
+                    N * B, bps)
+    cfg = EncoderConfig(block_size=N, max_lpc_order=12, bps=bps)
+    frames = BatchEncoder(cfg, batch_frames=B).encode_frames(
+        blocks_of(pcm, N, np.int16 if bps == 16 else np.int32), 0)
+    data = flac_stream(frames, pcm, 44100, bps, N)
     annotate_stages(torch, DECODE_STAGES)
     for _ in range(2):                                   # warm-up, build
         _, got = decoder.decode_array(data, batch_frames=args.batch_frames)
     if not np.array_equal(got, pcm):
         raise AssertionError("decode is not bit-exact")
     batches = -(-B // args.batch_frames)
-    print(f"card {card_line()}; torch {torch.__version__}; config decode, "
-          f"block {N}, {B} frames x 2 channels in {batches} batches of "
-          f"{args.batch_frames}, {args.batches} decodes")
+    print(f"card {card_line()}; torch {torch.__version__}; package "
+          f"{decoder.__file__}; config decode, stream {args.stream} "
+          f"({bps}-bit), block {N}, {B} frames x 2 channels in {batches} "
+          f"batches of {args.batch_frames}, {args.batches} decodes")
     report(torch, lambda: decoder.decode_array(
         data, batch_frames=args.batch_frames), args.batches,
         args.batches * batches, "decode_array", args.out)

@@ -11,7 +11,8 @@ more paths of ``chip_smoke.py``, from any checkout of flacx_torch.
         [--path {headline,best4608,best2304,best1152,hires,hires6,
                  file_default,file_b1152,file_best24,conformance,
                  conformance_hires,decode_headline,decode_fixed,
-                 decode_hires,decode_hires6,seq16k,seq32k} ...]
+                 decode_hires,decode_hires6,decode_hibps28,
+                 decode_hibps32,seq16k,seq32k} ...]
 
 Encodes one batch of each encode path (the data of ``chip_smoke.py``:
 the 1024-frame headline batch at block 4608; the best-compression batch
@@ -32,8 +33,8 @@ summed (a checkout that launches once per window and one that launches
 once for every window time the same work).  The decode paths
 (``decode_<stream>``) decode the first 256-frame batch of a stream of
 ``chip_smoke.py``'s ``decode`` phase (the headline PCM with its LPC
-frames or with fixed predictors only, the hi-res stereo or 5.1 frames)
-with ``decoder.decode_array`` at 256 frames a batch and time
+frames or with fixed predictors only, the hi-res stereo or 5.1 frames,
+the 28- or 32-bit stereo frames of its ``hibps`` phase) with ``decoder.decode_array`` at 256 frames a batch and time
 ``bit_unpack``, ``reconstruct`` and ``crc16_rows`` on the arguments of
 their first launch.  The sequence-sharding paths (``seq16k``,
 ``seq32k``) time the ``seqshard`` kernel's modes on the rows of
@@ -75,7 +76,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("headline", "best4608", "best2304", "best1152", "hires", "hires6",
          "file_default", "file_b1152", "file_best24", "conformance",
          "conformance_hires", "decode_headline", "decode_fixed",
-         "decode_hires", "decode_hires6", "seq16k", "seq32k")
+         "decode_hires", "decode_hires6", "decode_hibps28",
+         "decode_hibps32", "seq16k", "seq32k")
 #: the decode kernels: (a substring of the CUDA symbol in every version,
 #: wrapper, plain version), all in ``flacx_torch.kernels.<wrapper>``
 DECODE_KERNELS = {
@@ -453,6 +455,14 @@ def decode_stream(cs, label: str) -> bytes:
         frames = BatchEncoder(cfg, batch_frames=bf).encode_frames(
             cs.blocks_of(pcm, cs.N), 0)
         return cs.flac_stream(frames, pcm, 44100, 16, cs.N)
+    if label in cs.HIBPS:
+        bps = cs.HIBPS[label]
+        pcm = cs.synth_pcm(np.random.default_rng(cs.SEED + bps), cs.N * cs.B,
+                           bps)[:cs.N * bf]
+        cfg = EncoderConfig(block_size=cs.N, max_lpc_order=12, bps=bps)
+        frames = BatchEncoder(cfg, batch_frames=bf).encode_frames(
+            cs.blocks_of(pcm, cs.N, np.int32), 0)
+        return cs.flac_stream(frames, pcm, 44100, bps, cs.N)
     channels, count, _ = cs.HIRES[label]
     pcm = cs.hires_pcm(channels, count)
     enc = BatchEncoder(cs.hires_config(channels), batch_frames=count)
