@@ -502,8 +502,8 @@ def autocorr_library_ms(torch, x, window, max_lag: int) -> float | None:
 
 def hold(torch, name: str, wrapper: str, args: tuple,
          replaces: str | None = None, add_s: float | None = None) -> dict:
-    """The JSON row of the kernel behind ``wrapper`` (a key of
-    :func:`launch_counts`), held against its plain version on ``args``,
+    """The JSON row of the kernel behind ``wrapper`` (one of
+    :data:`WRAPPERS`), held against its plain version on ``args``,
     the arguments the path gave its first launch; ``replaces`` names the
     TPU kernels where the path, not the shapes, decides them.  ``add_s``:
     one f64 add's latency on the card, for ``reference_lpc``'s bound."""
@@ -629,39 +629,29 @@ def hold(torch, name: str, wrapper: str, args: tuple,
         frame_pack_bytes(args))
 
 
+#: the hand kernels' wrappers whose launches the phases count
+WRAPPERS = ("seq_autocorr", "seq_fixed", "seq_lpc", "reference_lpc",
+            "abs_residual_sums", "bit_unpack", "reconstruct", "crc16_rows",
+            "analysis", "lpc_residual_stats", "lpc_residual_zz",
+            "lpc_residual_res", "lpc_allorder", "rice_stats", "frame_pack")
+
+
 def launch_counts() -> dict:
-    from flacx_torch.kernels import (analysis, bit_unpack, crc16_rows,
-                                     frame_pack, lpc_allorder, lpc_residual,
-                                     reconstruct, reference_analysis,
-                                     rice_stats, seqshard)
-    return {
-        "seq_autocorr": seqshard.seq_autocorr,
-        "seq_fixed": seqshard.seq_fixed,
-        "seq_lpc": seqshard.seq_lpc,
-        "reference_lpc": reference_analysis.reference_lpc,
-        "abs_residual_sums": reference_analysis.abs_residual_sums,
-        "bit_unpack": bit_unpack.bit_unpack,
-        "reconstruct": reconstruct.reconstruct,
-        "crc16_rows": crc16_rows.crc16_rows,
-        "analysis": analysis.analysis,
-        "lpc_residual_stats": lpc_residual.lpc_residual_stats,
-        "lpc_residual_zz": lpc_residual.lpc_residual_zz,
-        "lpc_residual_res": lpc_residual.lpc_residual_res,
-        "lpc_allorder": lpc_allorder.lpc_allorder,
-        "rice_stats": rice_stats.rice_stats,
-        "frame_pack": frame_pack.frame_pack,
-    }
+    """Launches of each of :data:`WRAPPERS` counted so far by
+    ``flacx_torch.trace`` (which counts while it records)."""
+    from flacx_torch import trace
+    got = trace.snapshot()["counters"]
+    return {k: got.get("launch." + k, 0) for k in WRAPPERS}
 
 
 def counted_run(fn, needed) -> tuple:
-    """``fn()`` with every launch counter set to 0 just before; returns
-    its result and the counts, and fails if a kernel in ``needed`` was
-    launched no time."""
-    wrappers = launch_counts()
-    for w in wrappers.values():
-        w.launches = 0
-    out = fn()
-    counts = {k: w.launches for k, w in wrappers.items()}
+    """``fn()`` with every launch counted; returns its result and the
+    counts, and fails if a kernel in ``needed`` was launched no time."""
+    from flacx_torch import trace
+    with trace.recording():
+        before = launch_counts()
+        out = fn()
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
     missing = [k for k in needed if counts[k] < 1]
     if missing:
         raise AssertionError(f"path did not launch {missing}: {counts}")
@@ -1989,10 +1979,10 @@ def file_phase(torch) -> list[dict]:
         encode_to_file = pipeline.encode_to_file
 
         def counted_blocks(f, pcm, **kw):
-            before = dict((k, w.launches) for k, w in launch_counts().items())
+            before = launch_counts()
             stats = encode_to_file(f, pcm, **kw)
             per_block[kw["block_size"]] = {
-                k: w.launches - before[k] for k, w in launch_counts().items()}
+                k: v - before[k] for k, v in launch_counts().items()}
             return stats
 
         captured, launched = {}, {}

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 import flacx_torch.coded_number as _cn
+from flacx_torch import trace
 from flacx_torch.bitio import BitReader
 from flacx_torch.device import on_device
 from flacx_torch.format import MAGIC, MetadataBlockType, Streaminfo
@@ -112,62 +113,64 @@ def _scan_frame_chain(data: bytes, first: int
     blocking counts samples (+ the frame's own block size).  The first
     frame may carry any starting number.
     """
-    arr = np.frombuffer(data, np.uint8)
-    offs, nums, strats, bss = scan_candidates(arr, first)
-    empty = np.asarray([], np.int64)
-    if not offs.size:
-        return empty, empty, False
+    with trace.span("decode.scan"):
+        arr = np.frombuffer(data, np.uint8)
+        offs, nums, strats, bss = scan_candidates(arr, first)
+        empty = np.asarray([], np.int64)
+        if not offs.size:
+            return empty, empty, False
 
-    # one blocking strategy per stream (RFC 9639): the first (genuine)
-    # frame's bit is authoritative and candidates carrying the other bit
-    # are false syncs
-    strategy = int(strats[0])
-    keep = strats == strategy
-    offs, nums, bss = offs[keep], nums[keep], bss[keep]
-    step = bss if strategy == 1 else np.ones_like(bss)
+        # one blocking strategy per stream (RFC 9639): the first (genuine)
+        # frame's bit is authoritative and candidates carrying the other bit
+        # are false syncs
+        strategy = int(strats[0])
+        keep = strats == strategy
+        offs, nums, bss = offs[keep], nums[keep], bss[keep]
+        step = bss if strategy == 1 else np.ones_like(bss)
 
-    # fast path (the overwhelmingly common shape): every survivor is a
-    # real boundary — numbers form exactly the stride chain
-    if offs.size and bool(np.all(nums[1:] == nums[:-1] + step[:-1])):
-        return offs, bss, False
+        # fast path (the overwhelmingly common shape): every survivor is a
+        # real boundary — numbers form exactly the stride chain
+        if offs.size and bool(np.all(nums[1:] == nums[:-1] + step[:-1])):
+            return offs, bss, False
 
-    by_num: dict[int, list[tuple[int, int]]] = {}
-    for off, num, bs in zip(offs.tolist(), nums.tolist(), bss.tolist()):
-        by_num.setdefault(num, []).append((off, bs))
+        trace.count("decode.scan_ambiguous")
+        by_num: dict[int, list[tuple[int, int]]] = {}
+        for off, num, bs in zip(offs.tolist(), nums.tolist(), bss.tolist()):
+            by_num.setdefault(num, []).append((off, bs))
 
-    # A CRC-8-passing false sync whose junk coded number collides with a
-    # real frame number is resolved locally: the true boundary is the
-    # candidate that closes the PREVIOUS frame with a valid CRC-16 (first
-    # frame: the stream's first payload byte).  A surviving wrong pick is
-    # still caught by the batch CRC-16 check, which falls back to the
-    # sequential decoder — exactness never depends on this scan.
-    chain: list[int] = []
-    chain_bs: list[int] = []
-    ambiguous = False
-    expected = int(nums[0])
-    last_off = first - 1
-    while True:
-        alts = [ob for ob in by_num.get(expected, []) if ob[0] > last_off]
-        if not alts:
-            break
-        if len(alts) > 1:
-            if chain:
-                prev = chain[-1]
-                good = [(o, b) for o, b in alts
-                        if _span_crc16(arr, prev, o - 2)
-                        == int.from_bytes(data[o - 2:o], "big")]
-            else:
-                good = [(o, b) for o, b in alts if o == first]
-            if len(good) != 1:
-                ambiguous = True
-            alts = good or alts
-        off, bs = alts[0]
-        chain.append(off)
-        chain_bs.append(bs)
-        last_off = off
-        expected += bs if strategy == 1 else 1
-    return (np.asarray(chain, np.int64), np.asarray(chain_bs, np.int64),
-            ambiguous)
+        # A CRC-8-passing false sync whose junk coded number collides with a
+        # real frame number is resolved locally: the true boundary is the
+        # candidate that closes the PREVIOUS frame with a valid CRC-16 (first
+        # frame: the stream's first payload byte).  A surviving wrong pick is
+        # still caught by the batch CRC-16 check, which falls back to the
+        # sequential decoder — exactness never depends on this scan.
+        chain: list[int] = []
+        chain_bs: list[int] = []
+        ambiguous = False
+        expected = int(nums[0])
+        last_off = first - 1
+        while True:
+            alts = [ob for ob in by_num.get(expected, []) if ob[0] > last_off]
+            if not alts:
+                break
+            if len(alts) > 1:
+                if chain:
+                    prev = chain[-1]
+                    good = [(o, b) for o, b in alts
+                            if _span_crc16(arr, prev, o - 2)
+                            == int.from_bytes(data[o - 2:o], "big")]
+                else:
+                    good = [(o, b) for o, b in alts if o == first]
+                if len(good) != 1:
+                    ambiguous = True
+                alts = good or alts
+            off, bs = alts[0]
+            chain.append(off)
+            chain_bs.append(bs)
+            last_off = off
+            expected += bs if strategy == 1 else 1
+        return (np.asarray(chain, np.int64), np.asarray(chain_bs, np.int64),
+                ambiguous)
 
 
 def _scan_frame_offsets(data: bytes, first: int) -> tuple[np.ndarray, bool]:
@@ -264,21 +267,25 @@ def _upload(arrays: list[np.ndarray], dtype: torch.dtype,
             dev: torch.device) -> list[torch.Tensor]:
     """``arrays`` as tensors on ``dev``: for the card, one pinned staging
     buffer and one asynchronous copy (views of it come back)."""
-    if dev.type == "cpu":
-        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    sizes = [a.size for a in arrays]
-    buf = torch.empty(sum(sizes), dtype=dtype, pin_memory=True)
-    flat = buf.numpy()
-    pos = 0
-    for a, size in zip(arrays, sizes):
-        flat[pos:pos + size] = a.reshape(-1)
-        pos += size
-    dbuf = buf.to(dev, non_blocking=True)
-    out, pos = [], 0
-    for a, size in zip(arrays, sizes):
-        out.append(dbuf[pos:pos + size].view(a.shape))
-        pos += size
-    return out
+    with trace.span("decode.upload"):
+        if dev.type == "cpu":
+            out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+            trace.count("copy.h2d_bytes", sum(t.nbytes for t in out))
+            return out
+        sizes = [a.size for a in arrays]
+        buf = torch.empty(sum(sizes), dtype=dtype, pin_memory=True)
+        flat = buf.numpy()
+        pos = 0
+        for a, size in zip(arrays, sizes):
+            flat[pos:pos + size] = a.reshape(-1)
+            pos += size
+        dbuf = buf.to(dev, non_blocking=True)
+        trace.count("copy.h2d_bytes", buf.nbytes)
+        out, pos = [], 0
+        for a, size in zip(arrays, sizes):
+            out.append(dbuf[pos:pos + size].view(a.shape))
+            pos += size
+        return out
 
 
 #: the walker's int32 outputs the device decode takes, in upload order
@@ -294,21 +301,22 @@ def _device_decode(rows: torch.Tensor, lens: torch.Tensor, scan: dict,
     """Rows → ``(pcm int32 [F, n, C], err, crc_ok)``, all on the rows'
     device, with no host sync: ``bit_unpack``, then ``reconstruct``, then
     ``crc16_rows``.  ``scan`` holds the walker's outputs as tensors."""
-    vals, err_a = bit_unpack(rows, scan["ckpt_pos"], scan["ckpt_param"],
-                             scan["ckpt_esc"], scan["ckpt_inesc"],
-                             scan["kind"], scan["order"], scan["po"],
-                             scan["width"], n)
-    pcm, err_b = reconstruct(vals, scan["taps"], scan["shift"],
-                             scan["order"], scan["kind"], scan["wasted"],
-                             scan["warmup"], scan["const_val"],
-                             scan["channel_code"], scan.get("ckpt_state"),
-                             state_ss, t, use_i32,
-                             residual_limit(bps, use_i32), fixed_max)
-    if verify_crc:
-        crc_ok = crc16_rows(rows, lens)[1]
-    else:
-        crc_ok = torch.ones(1, dtype=torch.int32, device=rows.device)
-    return pcm, err_a | err_b, crc_ok
+    with trace.span("decode.enqueue"):
+        vals, err_a = bit_unpack(rows, scan["ckpt_pos"], scan["ckpt_param"],
+                                 scan["ckpt_esc"], scan["ckpt_inesc"],
+                                 scan["kind"], scan["order"], scan["po"],
+                                 scan["width"], n)
+        pcm, err_b = reconstruct(vals, scan["taps"], scan["shift"],
+                                 scan["order"], scan["kind"], scan["wasted"],
+                                 scan["warmup"], scan["const_val"],
+                                 scan["channel_code"], scan.get("ckpt_state"),
+                                 state_ss, t, use_i32,
+                                 residual_limit(bps, use_i32), fixed_max)
+        if verify_crc:
+            crc_ok = crc16_rows(rows, lens)[1]
+        else:
+            crc_ok = torch.ones(1, dtype=torch.int32, device=rows.device)
+        return pcm, err_a | err_b, crc_ok
 
 
 def _state_interval(n: int) -> int:
@@ -353,8 +361,9 @@ def _decode_rows_device(rows: np.ndarray, lens: np.ndarray, n: int, c: int,
     if rows_dev is None:
         rows_dev, = _upload([rows], torch.uint8, dev)
     state_ss = _state_interval(n)
-    scan = scan_frames(rows, np.zeros(f, np.int64), n, c, bps,
-                       state_interval=state_ss)
+    with trace.span("decode.walk"):
+        scan = scan_frames(rows, np.zeros(f, np.int64), n, c, bps,
+                           state_interval=state_ss)
 
     # per-frame sample-size overrides (RFC 9639 frame headers): the walker
     # already parsed each frame at its own width; a uniform override
@@ -428,18 +437,24 @@ def _decode_rows(rows: np.ndarray, n: int, c: int, bps: int,
     taps, shift, order, kind, wasted, code = i32
     pcm, _ = reconstruct(vals, taps, shift, order, kind, wasted, warm_t,
                          const_t, code, None, 0, 32, False, -1)
+    trace.count("copy.d2h_bytes", pcm.nbytes)
     return pcm.cpu().numpy()
 
 
 def _ok(trip) -> bool:
     """Whether a device batch decoded cleanly (a sync: the flags' read)."""
     _, err, crc_ok = trip
-    return bool(((err == 0) & (crc_ok != 0)).item())
+    with trace.span("decode.fetch"):
+        ok = (err == 0) & (crc_ok != 0)
+        trace.count("copy.d2h_bytes", ok.nbytes)
+        return bool(ok.item())
 
 
 def _host_pcm(trip, c: int) -> np.ndarray:
     """A device batch's PCM on the host, ``[F·n, c]`` int32."""
-    return trip[0].cpu().numpy().reshape(-1, c)
+    with trace.span("decode.fetch"):
+        trace.count("copy.d2h_bytes", trip[0].nbytes)
+        return trip[0].cpu().numpy().reshape(-1, c)
 
 
 def _crc_rows_ok(rows: np.ndarray, lens: np.ndarray) -> bool:
@@ -506,7 +521,8 @@ def _decode_var_frames(data: bytes, streaminfo: Streaminfo,
             sel = idx[lo: lo + batch_frames]
             lens = (ends_b[sel] - offsets[sel]).astype(np.int64)
             width = (int(lens.max()) + 255) // 256 * 256
-            rows = scatter_rows(arr, offsets[sel], ends_b[sel], width)
+            with trace.span("decode.stage_rows"):
+                rows = scatter_rows(arr, offsets[sel], ends_b[sel], width)
             try:
                 trip = _decode_rows_device(rows, lens, bs, c, bps,
                                            verify_crc, dev,
@@ -642,7 +658,8 @@ def _decode_array(data: bytes, batch_frames: int, verify_crc: bool,
         lens = (ends[lo:hi] - offsets[lo:hi]).astype(np.int64)
         # row width bucketed to 256 bytes
         width = (int(lens.max()) + 255) // 256 * 256
-        rows = scatter_rows(arr, offsets[lo:hi], ends[lo:hi], width)
+        with trace.span("decode.stage_rows"):
+            rows = scatter_rows(arr, offsets[lo:hi], ends[lo:hi], width)
         try:
             trip = _decode_rows_device(rows, lens, n, c,
                                        streaminfo.sample_size, verify_crc,
@@ -867,8 +884,9 @@ def decode_stream(f, batch_frames: int = 256, verify_crc: bool = True,
                     hi = min(lo + batch_frames, len(full))
                     lens = (ends[lo:hi] - full[lo:hi]).astype(np.int64)
                     width = (int(lens.max()) + 255) // 256 * 256
-                    rows = scatter_rows(arr, full[lo:hi], ends[lo:hi],
-                                        width)
+                    with trace.span("decode.stage_rows"):
+                        rows = scatter_rows(arr, full[lo:hi], ends[lo:hi],
+                                            width)
                     entry = wdec.submit(rows, lens)
                     if pending is not None:
                         pcm = wdec.try_resolve(pending)

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from flacx_torch import trace
 from flacx_torch.conformance import encode_batch_conformance
 from flacx_torch.device import on_device
 from flacx_torch.format import (FIXED_PREDICTOR_TAPS, INDEPENDENT_CHANNELS,
@@ -245,241 +246,250 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
     """
     if cfg.conformance:
         return encode_batch_conformance(cfg, pcm, frame_index)
-    n = cfg.block_size
-    b = pcm.shape[0]
-    p = cfg.max_lpc_order
-    t = cfg.max_taps
-    prec = cfg.qlp_precision
-    kmax = cfg.kmax
-    exact = cfg.order_search == "exact"
-    dev = pcm.device
-    indices = frame_indices(frame_index, b, dev)
-    if windows is None:
-        windows = analysis_windows(cfg, dev)
-    windows = windows.reshape(-1, n)
-    adt = analysis_dtype(cfg)
-    if len(windows) != len(cfg.windows) or windows.dtype != adt:
-        raise ValueError(f"expected {len(cfg.windows)} {adt} windows")
+    with trace.span("encode.analysis"):
+        n = cfg.block_size
+        b = pcm.shape[0]
+        p = cfg.max_lpc_order
+        t = cfg.max_taps
+        prec = cfg.qlp_precision
+        kmax = cfg.kmax
+        exact = cfg.order_search == "exact"
+        dev = pcm.device
+        indices = frame_indices(frame_index, b, dev)
+        if windows is None:
+            windows = analysis_windows(cfg, dev)
+        windows = windows.reshape(-1, n)
+        adt = analysis_dtype(cfg)
+        if len(windows) != len(cfg.windows) or windows.dtype != adt:
+            raise ValueError(f"expected {len(cfg.windows)} {adt} windows")
 
-    def ar(*args):
-        return torch.arange(*args, dtype=torch.int64, device=dev)
+        def ar(*args):
+            return torch.arange(*args, dtype=torch.int64, device=dev)
 
-    # ----- virtual channels -----------------------------------------------
-    if cfg.use_stereo_modes:
-        left = pcm[:, 0].to(torch.int32)
-        right = pcm[:, 1].to(torch.int32)
-        x_v = torch.stack([left, right, (left + right) >> 1, left - right],
-                          dim=1)                                 # [B, 4, N]
-        bps_list = [cfg.bps] * 3 + [cfg.bps + 1]
-    else:
-        x_v = pcm.to(torch.int32).contiguous()
-        bps_list = [cfg.bps] * cfg.channels
-    nv = x_v.shape[1]
-    bps_v = torch.tensor(bps_list, dtype=torch.int64,
-                         device=dev).expand(b, nv)               # [B, V]
-
-    # ----- wasted bits: strip each virtual channel's shared low zeros ----
-    if cfg.wasted_bits:
-        w_v = torch.minimum(shared_trailing_zeros(x_v), bps_v - 1)
-        x_v = x_v >> w_v[..., None].to(torch.int32)
-        bps_v = bps_v - w_v
-    else:
-        w_v = torch.zeros((b, nv), dtype=torch.int64, device=dev)
-
-    # ----- candidate analysis: fixed orders 0..4, LPC orders 1..P per
-    # window, the windows merged per (frame, channel, order) -------------
-    lorders = ar(1, p + 1)
-    lcounts = n - lorders
-    sum_taps_max = cfg.sum_taps_max
-    psize_min = n >> max(cfg.porders)
-    keep_res = (not exact and p > 0
-                and not emit.tile_layout_ok(n, psize_min)
-                and fused_int32_ok(cfg.eff_bps, sum_taps_max))
-    best = None
-    # every window's autocorrelation in one call (each window's as flacx
-    # computes it alone), and the fixed-order sums, which do not depend on
-    # the window; without LPC only the sums are used
-    autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p,
-                                eff_bps=cfg.eff_bps)
-    for wi, name in enumerate(cfg.windows if p else ()):
-        autoc = autoc_w[:, :, wi]
-        taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
-        # Levinson returns the analysis polynomial a[1:]; the prediction
-        # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation
-        qcoefs_w, qshifts_w, valid_q = quantize_all_orders(-taps_f, prec)
-        if exact:
-            lzz_w, lmax_w = lpc_allorder(x_v, qcoefs_w, qshifts_w,
-                                         cfg.eff_bps, sum_taps_max)
+        # ----- virtual channels ----------------------------------------------
+        if cfg.use_stereo_modes:
+            left = pcm[:, 0].to(torch.int32)
+            right = pcm[:, 1].to(torch.int32)
+            x_v = torch.stack([left, right, (left + right) >> 1,
+                               left - right], dim=1)             # [B, 4, N]
+            bps_list = [cfg.bps] * 3 + [cfg.bps + 1]
         else:
-            # the error power is in the windowed domain: undo the window's
-            # average power so fixed (unwindowed) and LPC estimates, and
-            # different windows, compare; E|r| ≈ sqrt(2/π)·σ
-            win_pow = float(np.mean(apodization_window_np(name, n) ** 2))
-            sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0)
-                               / (n * win_pow))
-            mean_abs = math.sqrt(2.0 / math.pi) * sigma
-            lzz_w, lmax_w = (2.0 * mean_abs * lcounts.double()).long(), None
-        best = merge_windows(best, window_candidates(
-            lzz_w, lmax_w, qcoefs_w, qshifts_w, valid_ld & valid_q))
+            x_v = pcm.to(torch.int32).contiguous()
+            bps_list = [cfg.bps] * cfg.channels
+        nv = x_v.shape[1]
+        bps_v = torch.tensor(bps_list, dtype=torch.int64,
+                             device=dev).expand(b, nv)               # [B, V]
 
-    fixed_orders = ar(5)
-    fest = (rice.estimate_bits(fzz_sum, n - fixed_orders, kmax)
-            + 8 + fixed_orders * bps_v[..., None])
-    fixed_bits = fest.amin(-1)
-    fixed_order = fest.argmin(-1).to(torch.int32)
-
-    if p:
-        lest = (rice.estimate_bits(best.lzz, lcounts, kmax) + 8
-                + lorders * bps_v[..., None] + 9 + lorders * prec)
-        lest = torch.where(best.valid, lest, _INF)
-        lo0 = lest.argmin(-1)                                   # [B, V]
-        lpc_order = (lo0 + 1).to(torch.int32)
-        taps_lpc_v = best.qcoefs.gather(
-            2, lo0[..., None, None].expand(b, nv, 1, p))[:, :, 0]
-        shift_lpc_v = best.qshifts.gather(2, lo0[..., None])[..., 0]
-        if exact:
-            # every order's exact statistics exist: take the chosen one's
-            lzz_exact = best.lzz.gather(-1, lo0[..., None])[..., 0]
-            lpc_maxabs = best.maxabs.gather(-1, lo0[..., None])[..., 0]
-        elif keep_res:
-            # the JAX package writes the chosen residual with its stats
-            # here and emits it, rather than recompute it (its tiled emit
-            # does not apply)
-            lpc_res_v, lzz_exact, lpc_maxabs = lpc_residual_res(
-                x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
-                lpc_order, cfg.eff_bps, sum_taps_max)
+        # ----- wasted bits: strip each virtual channel's shared low zeros ----
+        if cfg.wasted_bits:
+            w_v = torch.minimum(shared_trailing_zeros(x_v), bps_v - 1)
+            x_v = x_v >> w_v[..., None].to(torch.int32)
+            bps_v = bps_v - w_v
         else:
-            # cross-family comparison on EXACT magnitude sums (the
-            # Levinson error is optimistic about post-quantization
-            # residuals)
-            lzz_exact, lpc_maxabs = lpc_residual_stats(
-                x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
-                lpc_order, cfg.eff_bps, sum_taps_max)
-        lo64 = lpc_order.long()
-        lpc_bits = (rice.estimate_bits(lzz_exact, n - lo64, kmax)
-                    + 8 + lo64 * bps_v + 9 + lo64 * prec)
-        lpc_ok = best.valid.gather(-1, lo0[..., None])[..., 0]
-        if cfg.work_dtype == torch.int32:
-            # residuals that cannot survive the int32 working dtype make
-            # the LPC candidate ineligible (verbatim/fixed win instead)
-            lpc_ok = lpc_ok & (lpc_maxabs < (1 << 30))
-        lpc_bits = torch.where(lpc_ok, lpc_bits, _INF)
-        pred_is_lpc = lpc_bits < fixed_bits
-    else:
-        lpc_bits = torch.full_like(fixed_bits, _INF)
-        lpc_order = torch.ones_like(fixed_order)
-        taps_lpc_v = torch.zeros((b, nv, t), dtype=torch.int32, device=dev)
-        shift_lpc_v = torch.zeros((b, nv), dtype=torch.int32, device=dev)
-        pred_is_lpc = torch.zeros_like(fixed_bits, dtype=torch.bool)
-    pred_bits = torch.minimum(fixed_bits, lpc_bits)
-    pred_order = torch.where(pred_is_lpc, lpc_order, fixed_order)
+            w_v = torch.zeros((b, nv), dtype=torch.int64, device=dev)
 
-    # each virtual channel's chosen taps, merged across the two families
-    # and padded to max_taps
-    taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)[
-        fixed_order.long()]                                      # [B, V, 4]
-    taps_fix = torch.nn.functional.pad(taps_fix4, (0, t - 4))
-    taps_lpc = torch.nn.functional.pad(taps_lpc_v,
-                                       (0, t - taps_lpc_v.shape[-1]))
-    taps_v = torch.where(pred_is_lpc[..., None], taps_lpc, taps_fix) \
-        .to(torch.int32)
-    shift_v = torch.where(pred_is_lpc, shift_lpc_v, 0).to(torch.int32)
+        # ----- candidate analysis: fixed orders 0..4, LPC orders 1..P per
+        # window, the windows merged per (frame, channel, order) -------------
+        lorders = ar(1, p + 1)
+        lcounts = n - lorders
+        sum_taps_max = cfg.sum_taps_max
+        psize_min = n >> max(cfg.porders)
+        keep_res = (not exact and p > 0
+                    and not emit.tile_layout_ok(n, psize_min)
+                    and fused_int32_ok(cfg.eff_bps, sum_taps_max))
+        best = None
+        # every window's autocorrelation in one call (each window's as
+        # flacx computes it alone), and the fixed-order sums, which do not
+        # depend on the window; without LPC only the sums are used
+        autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p,
+                                    eff_bps=cfg.eff_bps)
+        for wi, name in enumerate(cfg.windows if p else ()):
+            autoc = autoc_w[:, :, wi]
+            taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
+            # Levinson returns the analysis polynomial a[1:]; the prediction
+            # coefficients of x̂[i] = Σ c_j·x[i-1-j] are its negation
+            qcoefs_w, qshifts_w, valid_q = quantize_all_orders(-taps_f, prec)
+            if exact:
+                lzz_w, lmax_w = lpc_allorder(x_v, qcoefs_w, qshifts_w,
+                                             cfg.eff_bps, sum_taps_max)
+            else:
+                # the error power is in the windowed domain: undo the
+                # window's average power so fixed (unwindowed) and LPC
+                # estimates, and different windows, compare;
+                # E|r| ≈ sqrt(2/π)·σ
+                win_pow = float(np.mean(apodization_window_np(name, n) ** 2))
+                sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0)
+                                   / (n * win_pow))
+                mean_abs = math.sqrt(2.0 / math.pi) * sigma
+                lzz_w = (2.0 * mean_abs * lcounts.double()).long()
+                lmax_w = None
+            best = merge_windows(best, window_candidates(
+                lzz_w, lmax_w, qcoefs_w, qshifts_w, valid_ld & valid_q))
 
-    const_ok = (x_v == x_v[..., :1]).all(-1)                    # [B, V]
-    const_bits = torch.where(const_ok, 8 + bps_v, _INF)
-    verb_bits = 8 + n * bps_v
+        fixed_orders = ar(5)
+        fest = (rice.estimate_bits(fzz_sum, n - fixed_orders, kmax)
+                + 8 + fixed_orders * bps_v[..., None])
+        fixed_bits = fest.amin(-1)
+        fixed_order = fest.argmin(-1).to(torch.int32)
 
-    def residual_zz(x, taps, shift, order, taps_max):
-        """The zigzag residual of the chosen taps (``taps_max`` bounds
-        their Σ|taps|)."""
-        return lpc_residual_zz(x, taps.contiguous(), shift.contiguous(),
-                               order.contiguous(), cfg.eff_bps, taps_max,
-                               cfg.work_dtype)
+    with trace.span("encode.select"):
+        if p:
+            lest = (rice.estimate_bits(best.lzz, lcounts, kmax) + 8
+                    + lorders * bps_v[..., None] + 9 + lorders * prec)
+            lest = torch.where(best.valid, lest, _INF)
+            lo0 = lest.argmin(-1)                                   # [B, V]
+            lpc_order = (lo0 + 1).to(torch.int32)
+            taps_lpc_v = best.qcoefs.gather(
+                2, lo0[..., None, None].expand(b, nv, 1, p))[:, :, 0]
+            shift_lpc_v = best.qshifts.gather(2, lo0[..., None])[..., 0]
+            if exact:
+                # every order's exact statistics exist: take the chosen one's
+                lzz_exact = best.lzz.gather(-1, lo0[..., None])[..., 0]
+                lpc_maxabs = best.maxabs.gather(-1, lo0[..., None])[..., 0]
+            elif keep_res:
+                # the JAX package writes the chosen residual with its stats
+                # here and emits it, rather than recompute it (its tiled emit
+                # does not apply)
+                lpc_res_v, lzz_exact, lpc_maxabs = lpc_residual_res(
+                    x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
+                    lpc_order, cfg.eff_bps, sum_taps_max)
+            else:
+                # cross-family comparison on EXACT magnitude sums (the
+                # Levinson error is optimistic about post-quantization
+                # residuals)
+                lzz_exact, lpc_maxabs = lpc_residual_stats(
+                    x_v, taps_lpc_v.contiguous(), shift_lpc_v.contiguous(),
+                    lpc_order, cfg.eff_bps, sum_taps_max)
+            lo64 = lpc_order.long()
+            lpc_bits = (rice.estimate_bits(lzz_exact, n - lo64, kmax)
+                        + 8 + lo64 * bps_v + 9 + lo64 * prec)
+            lpc_ok = best.valid.gather(-1, lo0[..., None])[..., 0]
+            if cfg.work_dtype == torch.int32:
+                # residuals that cannot survive the int32 working dtype make
+                # the LPC candidate ineligible (verbatim/fixed win instead)
+                lpc_ok = lpc_ok & (lpc_maxabs < (1 << 30))
+            lpc_bits = torch.where(lpc_ok, lpc_bits, _INF)
+            pred_is_lpc = lpc_bits < fixed_bits
+        else:
+            lpc_bits = torch.full_like(fixed_bits, _INF)
+            lpc_order = torch.ones_like(fixed_order)
+            taps_lpc_v = torch.zeros((b, nv, t), dtype=torch.int32, device=dev)
+            shift_lpc_v = torch.zeros((b, nv), dtype=torch.int32, device=dev)
+            pred_is_lpc = torch.zeros_like(fixed_bits, dtype=torch.bool)
+        pred_bits = torch.minimum(fixed_bits, lpc_bits)
+        pred_order = torch.where(pred_is_lpc, lpc_order, fixed_order)
 
-    def rice_plan(zz, order):
-        """The exact Rice plan of a zigzag residual."""
-        order = order.contiguous()
-        return rice.exact_plan(zz, order, cfg.porders, cfg.preferred_porders,
-                               kmax, allow_escape=cfg.escapes,
-                               kernel_stats=rice_stats(zz, order, cfg.porders,
-                                                       kmax))
+        # each virtual channel's chosen taps, merged across the two families
+        # and padded to max_taps
+        taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)[
+            fixed_order.long()]                                  # [B, V, 4]
+        taps_fix = torch.nn.functional.pad(taps_fix4, (0, t - 4))
+        taps_lpc = torch.nn.functional.pad(taps_lpc_v,
+                                           (0, t - taps_lpc_v.shape[-1]))
+        taps_v = torch.where(pred_is_lpc[..., None], taps_lpc, taps_fix) \
+            .to(torch.int32)
+        shift_v = torch.where(pred_is_lpc, shift_lpc_v, 0).to(torch.int32)
 
-    def residual_plan(x, taps, shift, order):
-        zz = residual_zz(x, taps, shift, order, max(sum_taps_max, 15))
-        return zz, rice_plan(zz, order)
+        const_ok = (x_v == x_v[..., :1]).all(-1)                    # [B, V]
+        const_bits = torch.where(const_ok, 8 + bps_v, _INF)
+        verb_bits = 8 + n * bps_v
 
-    # exact mode ranks the stereo modes by the exact Rice plan of every
-    # virtual channel; the plan of the winning pair is then emitted
-    plan_v = None
-    if cfg.use_stereo_modes and exact:
-        zz_v, plan_v = residual_plan(x_v, taps_v, shift_v, pred_order)
-        po64 = pred_order.long()
-        pred_bits = (8 + po64 * bps_v
-                     + torch.where(pred_is_lpc, 9 + po64 * prec, 0)
-                     + plan_v.bits)
-    cost_v = torch.minimum(torch.minimum(pred_bits, verb_bits), const_bits)
+        def residual_zz(x, taps, shift, order, taps_max):
+            """The zigzag residual of the chosen taps (``taps_max`` bounds
+            their Σ|taps|)."""
+            return lpc_residual_zz(x, taps.contiguous(), shift.contiguous(),
+                                   order.contiguous(), cfg.eff_bps, taps_max,
+                                   cfg.work_dtype)
 
-    # ----- stereo mode / channel selection --------------------------------
-    if cfg.use_stereo_modes:
-        pairs = torch.tensor([m[1] for m in _STEREO_MODES], device=dev)
-        codes = torch.tensor([int(m[0]) for m in _STEREO_MODES],
-                             dtype=torch.int32, device=dev)
-        mode_cost = cost_v[:, pairs[:, 0]] + cost_v[:, pairs[:, 1]]  # [B,4]
-        mode = mode_cost.argmin(-1)                                  # [B]
-        ch_code = codes[mode]
-        sel = pairs[mode]                                            # [B,2]
+        def rice_plan(zz, order):
+            """The exact Rice plan of a zigzag residual."""
+            order = order.contiguous()
+            return rice.exact_plan(zz, order, cfg.porders,
+                                   cfg.preferred_porders, kmax,
+                                   allow_escape=cfg.escapes,
+                                   kernel_stats=rice_stats(
+                                       zz, order, cfg.porders, kmax))
 
-        def gather_v(arr):
-            return _gather_pair(arr, sel)
-    else:
-        ch_code = torch.full((b,), int(INDEPENDENT_CHANNELS[cfg.channels]),
-                             dtype=torch.int32, device=dev)
+        def residual_plan(x, taps, shift, order):
+            zz = residual_zz(x, taps, shift, order, max(sum_taps_max, 15))
+            return zz, rice_plan(zz, order)
 
-        def gather_v(arr):
-            return arr
+        # exact mode ranks the stereo modes by the exact Rice plan of every
+        # virtual channel; the plan of the winning pair is then emitted
+        plan_v = None
+        if cfg.use_stereo_modes and exact:
+            zz_v, plan_v = residual_plan(x_v, taps_v, shift_v, pred_order)
+            po64 = pred_order.long()
+            pred_bits = (8 + po64 * bps_v
+                         + torch.where(pred_is_lpc, 9 + po64 * prec, 0)
+                         + plan_v.bits)
+        cost_v = torch.minimum(torch.minimum(pred_bits, verb_bits), const_bits)
 
-    x_sel = gather_v(x_v).contiguous()
-    is_lpc = gather_v(pred_is_lpc)
-    order = gather_v(pred_order)
-    const_sel = gather_v(const_ok)
-    bps_c = gather_v(bps_v)
-    taps = gather_v(taps_v).contiguous()
-    shift = gather_v(shift_v).contiguous()
+        # ----- stereo mode / channel selection -------------------------------
+        if cfg.use_stereo_modes:
+            pairs = torch.tensor([m[1] for m in _STEREO_MODES], device=dev)
+            codes = torch.tensor([int(m[0]) for m in _STEREO_MODES],
+                                 dtype=torch.int32, device=dev)
+            mode_cost = cost_v[:, pairs[:, 0]] + cost_v[:, pairs[:, 1]]
+            mode = mode_cost.argmin(-1)                                  # [B]
+            ch_code = codes[mode]
+            sel = pairs[mode]                                         # [B, 2]
 
-    # ----- chosen residual and its exact Rice plan ------------------------
-    if keep_res:
-        # LPC rows from the written residual, fixed rows from the fixed
-        # taps (Σ|taps| ≤ 15); both are zero at i < order
-        zz_fix = residual_zz(x_sel, gather_v(taps_fix4),
-                             torch.zeros_like(shift), order, 15)
-        zz = torch.where(is_lpc[..., None],
-                         rice.zigzag(gather_v(lpc_res_v)), zz_fix)
-        plan = rice_plan(zz, order)
-    elif plan_v is None:
-        zz, plan = residual_plan(x_sel, taps, shift, order)
-    else:
-        zz = gather_v(zz_v)
-        plan = rice.RicePlan(*(gather_v(f) for f in plan_v))
+            def gather_v(arr):
+                return _gather_pair(arr, sel)
+        else:
+            ch_code = torch.full(
+                (b,), int(INDEPENDENT_CHANNELS[cfg.channels]),
+                dtype=torch.int32, device=dev)
 
-    # ----- final kind by exact size ---------------------------------------
-    order64 = order.long()
-    pred_total = (8 + order64 * bps_c
-                  + torch.where(is_lpc, 9 + order64 * prec, 0) + plan.bits)
-    verb_total = 8 + n * bps_c
-    kind = torch.where(
-        const_sel, emit.KIND_CONSTANT,
-        torch.where(verb_total < pred_total, emit.KIND_VERBATIM,
-                    torch.where(is_lpc, emit.KIND_LPC, emit.KIND_FIXED))
-    ).to(torch.int32)
-    sub_bits = torch.where(const_sel, 8 + bps_c,
-                           torch.minimum(verb_total, pred_total))
+            def gather_v(arr):
+                return arr
 
-    # ----- emission --------------------------------------------------------
-    hdr = frame_header_symbols(indices, ch_code, n)
-    frame_bytes, length = pack_frames(
-        hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift, prec,
-        zz, plan, psize_min, cfg.max_frame_bytes,
-        wasted=gather_v(w_v))
+        x_sel = gather_v(x_v).contiguous()
+        is_lpc = gather_v(pred_is_lpc)
+        order = gather_v(pred_order)
+        const_sel = gather_v(const_ok)
+        bps_c = gather_v(bps_v)
+        taps = gather_v(taps_v).contiguous()
+        shift = gather_v(shift_v).contiguous()
+
+    with trace.span("encode.plan"):
+        # ----- chosen residual and its exact Rice plan -----------------------
+        if keep_res:
+            # LPC rows from the written residual, fixed rows from the fixed
+            # taps (Σ|taps| ≤ 15); both are zero at i < order
+            zz_fix = residual_zz(x_sel, gather_v(taps_fix4),
+                                 torch.zeros_like(shift), order, 15)
+            zz = torch.where(is_lpc[..., None],
+                             rice.zigzag(gather_v(lpc_res_v)), zz_fix)
+            plan = rice_plan(zz, order)
+        elif plan_v is None:
+            zz, plan = residual_plan(x_sel, taps, shift, order)
+        else:
+            zz = gather_v(zz_v)
+            plan = rice.RicePlan(*(gather_v(f) for f in plan_v))
+
+        # ----- final kind by exact size --------------------------------------
+        order64 = order.long()
+        pred_total = (8 + order64 * bps_c
+                      + torch.where(is_lpc, 9 + order64 * prec, 0)
+                      + plan.bits)
+        verb_total = 8 + n * bps_c
+        kind = torch.where(
+            const_sel, emit.KIND_CONSTANT,
+            torch.where(verb_total < pred_total, emit.KIND_VERBATIM,
+                        torch.where(is_lpc, emit.KIND_LPC, emit.KIND_FIXED))
+        ).to(torch.int32)
+        sub_bits = torch.where(const_sel, 8 + bps_c,
+                               torch.minimum(verb_total, pred_total))
+
+    with trace.span("encode.emit"):
+        # ----- emission ------------------------------------------------------
+        hdr = frame_header_symbols(indices, ch_code, n)
+        frame_bytes, length = pack_frames(
+            hdr, kind, order, bps_c.to(torch.int32), x_sel, taps, shift,
+            prec, zz, plan, psize_min, cfg.max_frame_bytes,
+            wasted=gather_v(w_v))
     return {"bytes": frame_bytes, "length": length, "kind": kind,
             "channel_code": ch_code, "subframe_bits": sub_bits}
 
@@ -490,13 +500,24 @@ def _fetch(result, valid: int, key: str, width: int | None = None,
     ``width`` columns where given), the parts of a sharded result joined
     in frame order."""
     out = []
-    for part in result if isinstance(result, list) else [result]:
-        t = part[key][:max(valid, 0)]
-        if width is not None:
-            t = t[:, :width]
-        out.append(t.cpu().numpy())
-        valid -= part[key].shape[0]
-    return np.concatenate(out)
+    with trace.span("encode.fetch"):
+        for part in result if isinstance(result, list) else [result]:
+            t = part[key][:max(valid, 0)]
+            if width is not None:
+                t = t[:, :width]
+            out.append(t.cpu().numpy())
+            trace.count("copy.d2h_bytes", t.nbytes)
+            valid -= part[key].shape[0]
+        return np.concatenate(out)
+
+
+def _upload(arr: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``arr`` copied to ``dev`` (span ``encode.upload``; its bytes counted
+    in ``copy.h2d_bytes``)."""
+    with trace.span("encode.upload"), on_device(dev):
+        x = arr.to(dev)
+    trace.count("copy.h2d_bytes", x.nbytes)
+    return x
 
 
 class BatchEncoder:
@@ -551,16 +572,16 @@ class BatchEncoder:
                              f"[B, {self.config.channels}, "
                              f"{self.config.block_size}]")
         if self.sharding is None:
+            x = _upload(arr, self.device)
             with on_device(self.device):
-                return _encode_batch(self.config, arr.to(self.device), index,
-                                     self._windows)
+                return _encode_batch(self.config, x, index, self._windows)
         parts = []
         for dev, lo, hi in self.sharding.parts(arr.shape[0]):
             part_index = index + lo if isinstance(index, int) \
                 else index[lo:hi]
+            x = _upload(arr[lo:hi], dev)
             with on_device(dev):
-                parts.append(_encode_batch(self.config, arr[lo:hi].to(dev),
-                                           part_index,
+                parts.append(_encode_batch(self.config, x, part_index,
                                            self._part_windows[dev]))
         return parts
 
@@ -577,34 +598,35 @@ class BatchEncoder:
         lens = _fetch(result, valid, "length")
         width = int(lens.max()) if valid else 0
         data = _fetch(result, valid, "bytes", width)
-        frames = [data[i, :lens[i]].tobytes() for i in range(valid)]
         over = (_fetch(result, valid, "overflow") if pcm is not None
                 else np.zeros(0, bool))
-        if over.any():
-            from flacx_torch.pipeline import _oracle_frame
-            cfg = self.config
-            for i in np.nonzero(over)[0]:
-                frames[i] = _oracle_frame(
-                    pcm[i].T, index0 + int(i), cfg.bps, cfg.block_size,
-                    cfg.max_lpc_order, cfg.qlp_precision,
-                    cfg.partition_orders)
+        histograms = stats is not None and not over.any()
+        if histograms:
+            kinds = _fetch(result, valid, "kind").ravel()
+            codes = _fetch(result, valid, "channel_code")
+        # every fetch is above: the rest is host time (encode.cut)
+        with trace.span("encode.cut"):
+            frames = [data[i, :lens[i]].tobytes() for i in range(valid)]
+            if over.any():
+                from flacx_torch.pipeline import _oracle_frame
+                cfg = self.config
+                for i in np.nonzero(over)[0]:
+                    frames[i] = _oracle_frame(
+                        pcm[i].T, index0 + int(i), cfg.bps, cfg.block_size,
+                        cfg.max_lpc_order, cfg.qlp_precision,
+                        cfg.partition_orders)
+            if histograms:
+                kh = stats.setdefault("subframe_kinds", {})
+                for name, code in (("constant", 0), ("verbatim", 1),
+                                   ("fixed", 2), ("lpc", 3)):
+                    kh[name] = kh.get(name, 0) + int((kinds == code).sum())
+                mh = stats.setdefault("stereo_modes", {})
+                for name, code in (("L/R", 1), ("L/S", 8), ("S/R", 9),
+                                   ("M/S", 10)):
+                    mh[name] = mh.get(name, 0) + int((codes == code).sum())
             if stats is not None:
                 stats["frame_bytes"] = stats.get("frame_bytes", 0) \
                     + sum(map(len, frames))
-            return frames
-        if stats is not None:
-            kinds = _fetch(result, valid, "kind").ravel()
-            kh = stats.setdefault("subframe_kinds", {})
-            for name, code in (("constant", 0), ("verbatim", 1),
-                               ("fixed", 2), ("lpc", 3)):
-                kh[name] = kh.get(name, 0) + int((kinds == code).sum())
-            codes = _fetch(result, valid, "channel_code")
-            mh = stats.setdefault("stereo_modes", {})
-            for name, code in (("L/R", 1), ("L/S", 8), ("S/R", 9),
-                               ("M/S", 10)):
-                mh[name] = mh.get(name, 0) + int((codes == code).sum())
-            stats["frame_bytes"] = stats.get("frame_bytes", 0) \
-                + sum(map(len, frames))
         return frames
 
     def encode_frame_stream(self, batches, first_index: int = 0,

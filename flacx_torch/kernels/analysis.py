@@ -100,9 +100,5 @@ def analysis(x: torch.Tensor, window: torch.Tensor, max_lag: int,
            [rows, n, max_lag, nwin, int(window.dtype == torch.float64),
             int(fixed_sums), int(diff_width(eff_bps) == "int64"), seg],
            "analysis")
-    analysis.launches += 1
     shape = (*lead, lags) if window.dim() == 1 else (*lead, nwin, lags)
     return autoc.reshape(shape), fsums
-
-
-analysis.launches = 0

@@ -73,8 +73,4 @@ def bit_unpack(rows: torch.Tensor, ckpt_pos: torch.Tensor,
     launch(bind("bit_unpack", "flacx_bit_unpack", 11, 6),
            [rows, ckpt_pos, ckpt_param, ckpt_esc, ckpt_inesc, kind, order, po,
             width, vals, err], [f, c, k, n, w, INTERVAL], "bit_unpack")
-    bit_unpack.launches += 1
     return vals, err
-
-
-bit_unpack.launches = 0

@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from flacx_torch import trace
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parents[1] / "_build"
 KERNELS = ("analysis", "lpc_residual", "lpc_allorder", "rice_stats",
@@ -118,13 +120,15 @@ def launch(fn, tensors: list[torch.Tensor], ints: list[int],
            what: str) -> None:
     """Call a bound kernel launcher on the current stream; raise on a
     refused launch (the code is ``cudaGetLastError()`` after it).  A
-    ``None`` in ``tensors`` passes a null pointer."""
+    ``None`` in ``tensors`` passes a null pointer.  Each launch counts
+    under ``launch.<what>`` (:mod:`flacx_torch.trace`)."""
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
     rc = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
             stream)
     if rc:
         raise RuntimeError(f"flacx_torch: {what} launch failed with CUDA "
                            f"error {rc}")
+    trace.count("launch." + what)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

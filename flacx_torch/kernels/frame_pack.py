@@ -176,8 +176,4 @@ def frame_pack(hdr_v: torch.Tensor, hdr_l: torch.Tensor, sh_v: torch.Tensor,
            [b, c, h, sh, p, n, psize_min, max_frame_bytes, extra.numel(),
             mult_head, CHUNK_SLOTS, PLACE_CHUNKS,
             int(zz.dtype == torch.int64)], "frame_pack")
-    frame_pack.launches += 1
     return out, length
-
-
-frame_pack.launches = 0

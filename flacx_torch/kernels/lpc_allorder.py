@@ -94,8 +94,4 @@ def lpc_allorder(x: torch.Tensor, qcoefs: torch.Tensor, shifts: torch.Tensor,
             int(mac_width(eff_bps, sum_taps_max) == "wide"),
             sample_limbs(eff_bps), int(narrow_sums(eff_bps, sum_taps_max))],
            "lpc_allorder")
-    lpc_allorder.launches += 1
     return lzz, maxabs
-
-
-lpc_allorder.launches = 0

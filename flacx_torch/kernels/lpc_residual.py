@@ -119,7 +119,6 @@ def lpc_residual_stats(x: torch.Tensor, taps: torch.Tensor,
     launch(bind("lpc_residual", "flacx_lpc_residual_stats", 6, 5),
            [x, taps, shift, order, lzz, maxabs], [rows, n, t, int(wide), seg],
            "lpc_residual_stats")
-    lpc_residual_stats.launches += 1
     return lzz, maxabs
 
 
@@ -145,7 +144,6 @@ def lpc_residual_zz(x: torch.Tensor, taps: torch.Tensor,
            [x, taps, shift, order, zz],
            [rows, n, t, int(wide), segment_size(n),
             int(out_dtype == torch.int64)], "lpc_residual_zz")
-    lpc_residual_zz.launches += 1
     return zz
 
 
@@ -168,10 +166,4 @@ def lpc_residual_res(x: torch.Tensor, taps: torch.Tensor,
     launch(bind("lpc_residual", "flacx_lpc_residual_res", 7, 4),
            [x, taps, shift, order, res, lzz, maxabs], [rows, n, t, seg],
            "lpc_residual_res")
-    lpc_residual_res.launches += 1
     return res, lzz, maxabs
-
-
-lpc_residual_stats.launches = 0
-lpc_residual_zz.launches = 0
-lpc_residual_res.launches = 0

@@ -143,8 +143,4 @@ def reconstruct(vals: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
            [f, c, n, t, int(not use_i32), lim, state_ss, ks,
             -1 if fixed_max is None else fixed_max, int(state64)],
            "reconstruct")
-    reconstruct.launches += 1
     return pcm, err
-
-
-reconstruct.launches = 0

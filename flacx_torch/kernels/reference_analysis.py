@@ -117,7 +117,6 @@ def reference_lpc(x: torch.Tensor, window: torch.Tensor, max_order: int,
     launch(bind("reference_analysis", "flacx_reference_lpc", 6, 4),
            [x, window, autoc, qcoefs, shift, valid],
            [math.prod(lead), n, p, precision], "reference_lpc")
-    reference_lpc.launches += 1
     return autoc, qcoefs, shift, valid
 
 
@@ -160,7 +159,6 @@ def abs_residual_sums(x: torch.Tensor, qcoefs: torch.Tensor,
            [math.prod(lead), n, p, int(wide), limbs,
             int(diff_width(eff_bps) == "int64"), seg],
            "abs_residual_sums")
-    abs_residual_sums.launches += 1
     return fsum, lsum
 
 
@@ -184,7 +182,3 @@ def dadd_latency_probe(steps: int, device: torch.device) -> torch.Tensor:
     launch(bind("reference_analysis", "flacx_dadd_chain", 1, 1), [out],
            [steps], "dadd_chain")
     return out
-
-
-reference_lpc.launches = 0
-abs_residual_sums.launches = 0

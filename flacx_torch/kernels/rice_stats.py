@@ -85,7 +85,6 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
            [zz, order, out, scratch, tickets],
            [rows, n, max_po, po_mask, kmax, s,
             int(zz.dtype == torch.int64)], "rice_stats")
-    rice_stats.launches += 1
     result = {}
     off = 0
     for po in levels:
@@ -94,6 +93,3 @@ def rice_stats(zz: torch.Tensor, order: torch.Tensor,
                            for a in range(5))
         off += w
     return result
-
-
-rice_stats.launches = 0

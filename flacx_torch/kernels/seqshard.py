@@ -170,7 +170,6 @@ def seq_autocorr(xw: torch.Tensor, max_lag: int, n_seq: int,
            [xw, halo, out],
            [rows, xw.shape[-1], n_seq, shard0, n, max_lag,
             int(xw.dtype == torch.float64)], "seq_autocorr")
-    seq_autocorr.launches += 1
     return out
 
 
@@ -202,7 +201,6 @@ def seq_fixed(x: torch.Tensor, n_seq: int,
     launch(bind("seqshard", "flacx_seq_fixed", 3, 5), [x, halo, out],
            [rows, x.shape[-1], n_seq, shard0, int(x.dtype == torch.int64)],
            "seq_fixed")
-    seq_fixed.launches += 1
     return out
 
 
@@ -240,10 +238,4 @@ def seq_lpc(x: torch.Tensor, taps: torch.Tensor, shift: torch.Tensor,
     launch(bind("seqshard", "flacx_seq_lpc", 6, 5),
            [x, halo, taps, shift, order, out],
            [rows, x.shape[-1], n_seq, shard0, t], "seq_lpc")
-    seq_lpc.launches += 1
     return out[..., 0], out[..., 1]
-
-
-seq_autocorr.launches = 0
-seq_fixed.launches = 0
-seq_lpc.launches = 0

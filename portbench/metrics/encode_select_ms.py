@@ -1,0 +1,13 @@
+"""Host ms a batch in _encode_batch's predictor choice: the LPC order, its
+residual statistics, the taps merge, constant and verbatim costs, the
+stereo ranking. Read from the program's own span encode.select
+(flacx_torch.trace) over the profiled window, whose host times carry
+torch.profiler's CPU activity cost: compare with the other stages, or
+with this metric in another commit, not with encode_enqueue_ms (layer:
+encode pipeline)."""
+
+from portbench import program
+
+
+def read(record):
+    return program.encode_span_ms(record, "encode.select")

@@ -49,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+from flacx_torch import trace
 from flacx_torch.encoder import EncoderConfig
 from flacx_torch.format import FIXED_PREDICTOR_TAPS
 from flacx_torch.kernels import analysis as k_an
@@ -72,6 +73,18 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def counted():
+    """Every test counts the hand kernels' launches (:func:`launches`)."""
+    with trace.recording():
+        yield
+
+
+def launches(name: str) -> int:
+    """Launches of hand kernel ``name`` counted so far."""
+    return trace.snapshot()["counters"].get("launch." + name, 0)
 
 
 def rows(seed: int, r: int, n: int, bits: int = 17) -> np.ndarray:
@@ -129,12 +142,12 @@ def test_analysis_kernel_windows(dev, n, max_lag):
     for dtype in (torch.float32, torch.float64):
         for nwin in (1, 3, 4, 5):
             w = torch.rand((nwin, n), dtype=dtype, generator=gen).to(dev)
-            before = k_an.analysis.launches
+            before = launches("analysis")
             autoc, fsums = k_an.analysis(x, w, max_lag)
             again = k_an.analysis(x, w, max_lag)
             ref_a, ref_f = k_an.analysis_plain(x, w, max_lag)
             torch.cuda.synchronize()
-            assert k_an.analysis.launches - before == 2
+            assert launches("analysis") - before == 2
             assert autoc.shape == (6, nwin, max_lag + 1)
             assert torch.equal(autoc, again[0])
             assert torch.equal(fsums, again[1])
@@ -172,11 +185,11 @@ def test_lpc_residual_kernel_buckets(dev, n, r, wide):
     args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
     for mode in ("stats", "zz") + (() if wide else ("res",)):
         fn = getattr(k_lr, f"lpc_residual_{mode}")
-        before = fn.launches
+        before = launches(fn.__name__)
         got = fn(*args, *bound)
         ref = getattr(k_lr, f"lpc_residual_{mode}_plain")(*args, *bound)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert launches(fn.__name__) == before + 1
         got, ref = ((v if isinstance(v, tuple) else (v,)) for v in (got, ref))
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), mode
 
@@ -291,11 +304,11 @@ def test_lpc_residual_kernel_res_mode(dev, n, ntaps, tap_max):
     args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
     bound = (17, 192)
     assert np.abs(taps).sum(-1).max() <= 192
-    before = k_lr.lpc_residual_res.launches
+    before = launches("lpc_residual_res")
     got = k_lr.lpc_residual_res(*args, *bound)
     ref = k_lr.lpc_residual_res_plain(*args, *bound)
     torch.cuda.synchronize()
-    assert k_lr.lpc_residual_res.launches == before + 1
+    assert launches("lpc_residual_res") == before + 1
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert torch.equal(rice.zigzag(got[0]),
                        k_lr.lpc_residual_zz(*args, *bound))
@@ -470,11 +483,11 @@ def frame_pack_case(dev, n, porders, wasted):
     args = (hdr.values, hdr.lengths, sh_v, sh_l, pv, pl, zz, t["x"], kesc,
             t["kind"], t["order"], t["bps"], psize_min,
             EncoderConfig(block_size=n).max_frame_bytes)
-    before = k_fp.frame_pack.launches
+    before = launches("frame_pack")
     out, length = k_fp.frame_pack(*args)
     ref, ref_len = k_fp.frame_pack_plain(*args)
     torch.cuda.synchronize()
-    assert k_fp.frame_pack.launches == before + 1
+    assert launches("frame_pack") == before + 1
     assert bool(plan.esc_seg.any())
     assert torch.equal(length, ref_len) and torch.equal(out, ref)
 
@@ -595,11 +608,11 @@ def chunk_bits(args) -> np.ndarray:
 
 
 def frame_pack_equal(args):
-    before = k_fp.frame_pack.launches
+    before = launches("frame_pack")
     out, length = k_fp.frame_pack(*args)
     ref, ref_len = k_fp.frame_pack_plain(*args)
     torch.cuda.synchronize()
-    assert k_fp.frame_pack.launches == before + 1
+    assert launches("frame_pack") == before + 1
     assert torch.equal(length, ref_len) and torch.equal(out, ref)
 
 
@@ -691,21 +704,21 @@ def unpack_args(rows_t, t, n):
 
 
 def hold_unpack(args):
-    before = k_bu.bit_unpack.launches
+    before = launches("bit_unpack")
     got = k_bu.bit_unpack(*args)
     ref = k_bu.bit_unpack_plain(*args)
     torch.cuda.synchronize()
-    assert k_bu.bit_unpack.launches == before + 1
+    assert launches("bit_unpack") == before + 1
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     return got
 
 
 def hold_reconstruct(*args):
-    before = k_rec.reconstruct.launches
+    before = launches("reconstruct")
     got = k_rec.reconstruct(*args)
     ref = k_rec.reconstruct_plain(*args)
     torch.cuda.synchronize()
-    assert k_rec.reconstruct.launches == before + 1
+    assert launches("reconstruct") == before + 1
     assert torch.equal(got[1], ref[1])
     assert torch.equal(got[0], ref[0]), (got[0] != ref[0]).nonzero()[:4]
 
@@ -1021,10 +1034,10 @@ def test_reconstruct_kernel_refuses_int64_state_on_int32(dev):
     t = wide_state_inputs(rng, dev, c, n, ss, 4)
     args = (t["vals"], t["taps"], t["shift"], t["order"], t["kind"],
             t["wasted"], t["warmup"], t["const_val"], t["code"])
-    before = k_rec.reconstruct.launches
+    before = launches("reconstruct")
     with pytest.raises(ValueError, match="int64 state"):
         k_rec.reconstruct(*args, t["state"], ss, 4, True, 29)
-    assert k_rec.reconstruct.launches == before
+    assert launches("reconstruct") == before
     pcm = torch.empty((f, n, c), dtype=torch.int32, device=dev)
     err = torch.zeros(1, dtype=torch.int32, device=dev)
     fn = bind("reconstruct", "flacx_reconstruct", 12, 10)
@@ -1082,11 +1095,11 @@ def test_crc16_rows_kernel(dev, w):
             rows_np[bad, lens[bad] // 2] ^= 0x40
         args = (torch.from_numpy(rows_np).to(dev),
                 torch.from_numpy(lens.astype(np.int32)).to(dev))
-        before = k_crc.crc16_rows.launches
+        before = launches("crc16_rows")
         ok, all_ok = k_crc.crc16_rows(*args)
         ref_ok, ref_all = k_crc.crc16_rows_plain(*args)
         torch.cuda.synchronize()
-        assert k_crc.crc16_rows.launches == before + 1
+        assert launches("crc16_rows") == before + 1
         assert torch.equal(ok, ref_ok) and torch.equal(all_ok, ref_all)
         assert ok.tolist() == [int(i != bad) for i in range(f)]
 
@@ -1113,11 +1126,11 @@ def test_reference_lpc_kernel(dev, n, p, precision):
     from flacx_torch.kernels import reference_analysis as k_ra
     x = torch.from_numpy(lpc_rows(11 + p, 10, n))
     w = reference_window(n, torch.device("cpu"))
-    before = k_ra.reference_lpc.launches
+    before = launches("reference_lpc")
     got = k_ra.reference_lpc(x.to(dev), w.to(dev), p, precision)
     want = k_ra.reference_lpc_plain(x, w, p, precision)
     torch.cuda.synchronize()
-    assert k_ra.reference_lpc.launches == before + 1
+    assert launches("reference_lpc") == before + 1
     assert f64_bits_equal(got[0], want[0])
     for g, r in zip(got[1:], want[1:]):
         assert torch.equal(g.cpu(), r)
@@ -1165,12 +1178,12 @@ def test_abs_residual_sums_kernel(dev, n, p, precision, eff_bps):
     qc = torch.from_numpy(q)
     qs = torch.from_numpy(rng.integers(0, 16, (9, p)).astype(np.int32))
     taps_max = max(p, 1) << (precision - 1)
-    before = k_ra.abs_residual_sums.launches
+    before = launches("abs_residual_sums")
     got = k_ra.abs_residual_sums(x.to(dev), qc.to(dev), qs.to(dev), eff_bps,
                                  taps_max)
     want = k_ra.abs_residual_sums_plain(x, qc, qs, eff_bps, taps_max)
     torch.cuda.synchronize()
-    assert k_ra.abs_residual_sums.launches == before + 1
+    assert launches("abs_residual_sums") == before + 1
     for g, r in zip(got, want):
         assert torch.equal(g.cpu(), r)
 
@@ -1211,11 +1224,11 @@ def test_reference_lpc_packed_chains(dev, r, p, n):
     from flacx_torch.kernels import reference_analysis as k_ra
     x = torch.from_numpy(chain_rows(p * 7 + r, r, n))
     w = reference_window(n, torch.device("cpu"))
-    before = k_ra.reference_lpc.launches
+    before = launches("reference_lpc")
     got = k_ra.reference_lpc(x.to(dev), w.to(dev), p, 15 if p > 2 else 5)
     want = k_ra.reference_lpc_plain(x, w, p, 15 if p > 2 else 5)
     torch.cuda.synchronize()
-    assert k_ra.reference_lpc.launches == before + 1
+    assert launches("reference_lpc") == before + 1
     assert f64_bits_equal(got[0], want[0])
     for g, v in zip(got[1:], want[1:]):
         assert torch.equal(g.cpu(), v)
@@ -1270,12 +1283,12 @@ def sum_args(seed: int, r: int, n: int, p: int, eff_bps: int,
 def hold_sums(dev, args, eff_bps):
     from flacx_torch.kernels import reference_analysis as k_ra
     x, q, s, taps_max = args
-    before = k_ra.abs_residual_sums.launches
+    before = launches("abs_residual_sums")
     got = k_ra.abs_residual_sums(x.to(dev), q.to(dev), s.to(dev), eff_bps,
                                  taps_max)
     want = k_ra.abs_residual_sums_plain(x, q, s, eff_bps, taps_max)
     torch.cuda.synchronize()
-    assert k_ra.abs_residual_sums.launches == before + 1
+    assert launches("abs_residual_sums") == before + 1
     for g, v in zip(got, want):
         assert torch.equal(g.cpu(), v)
 
@@ -1321,12 +1334,11 @@ def test_conformance_encode_on_card(dev, n, p, kinds):
                           for k, kind in enumerate(kinds)])
     blocks = np.ascontiguousarray(pcm.reshape(-1, n, 2).transpose(0, 2, 1))
     cfg = EncoderConfig(block_size=n, max_lpc_order=p, conformance=True)
-    before = (k_ra.reference_lpc.launches, k_ra.abs_residual_sums.launches)
+    before = (launches("reference_lpc"), launches("abs_residual_sums"))
     card = BatchEncoder(cfg, batch_frames=len(blocks)).encode_frames(
         blocks, 9)
-    assert (k_ra.reference_lpc.launches,
-            k_ra.abs_residual_sums.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+    assert (launches("reference_lpc"),
+            launches("abs_residual_sums")) == (before[0] + 1, before[1] + 1)
     cpu = BatchEncoder(cfg, batch_frames=len(blocks), device="cpu") \
         .encode_frames(blocks, 9)
     assert card == cpu
@@ -1390,13 +1402,13 @@ def test_lpc_residual_kernel_zz_int64(dev, eff_bps, ntaps, prec, n):
     shift[2:4] = 0
     args = [x] + [torch.from_numpy(a).to(dev) for a in (taps, shift, order)]
     bound = (eff_bps, ntaps << (prec - 1))
-    before = k_lr.lpc_residual_zz.launches
+    before = launches("lpc_residual_zz")
     zz = k_lr.lpc_residual_zz(*args, *bound, torch.int64)
     ref = k_lr.lpc_residual_zz_plain(*args, *bound, torch.int64)
     got_s = k_lr.lpc_residual_stats(*args, *bound)
     ref_s = k_lr.lpc_residual_stats_plain(*args, *bound)
     torch.cuda.synchronize()
-    assert k_lr.lpc_residual_zz.launches == before + 1
+    assert launches("lpc_residual_zz") == before + 1
     assert zz.dtype == torch.int64 and torch.equal(zz, ref)
     assert all(torch.equal(a, b) for a, b in zip(got_s, ref_s))
     if eff_bps == 32 and prec == 15:
@@ -1438,11 +1450,11 @@ def test_rice_stats_kernel_int64(dev, n, porders, c):
         order[:] = np.minimum(order, 1)
     zz = int64_zz(n, r, c, n, order)
     zt, ot = torch.from_numpy(zz).to(dev), torch.from_numpy(order).to(dev)
-    before = k_rs.rice_stats.launches
+    before = launches("rice_stats")
     got = k_rs.rice_stats(zt, ot, porders, 30)
     ref = rice.rice_stats(zt, ot, porders, 30)
     torch.cuda.synchronize()
-    assert k_rs.rice_stats.launches == before + 1
+    assert launches("rice_stats") == before + 1
     for po in ref:
         assert all(torch.equal(a, b) for a, b in zip(got[po], ref[po])), po
     plan = rice.exact_plan(zt, ot, porders, porders, 30, kernel_stats=got)
@@ -1821,11 +1833,11 @@ def test_crc16_rows_kernel_edges(dev, w, count):
         rows_np[row, min(byte, body - 1)] ^= 0x10
     args = (torch.from_numpy(rows_np).to(dev),
             torch.from_numpy(lens.astype(np.int32)).to(dev))
-    before = k_crc.crc16_rows.launches
+    before = launches("crc16_rows")
     ok, all_ok = k_crc.crc16_rows(*args)
     ref_ok, ref_all = k_crc.crc16_rows_plain(*args)
     torch.cuda.synchronize()
-    assert k_crc.crc16_rows.launches == before + 1
+    assert launches("crc16_rows") == before + 1
     assert torch.equal(ok, ref_ok) and torch.equal(all_ok, ref_all)
     assert ok.tolist() == [int(bool(good[i]) and i not in bad)
                            for i in range(count)]

@@ -23,7 +23,7 @@ from flacx.ops.bitpack import pack_symbols_words as fx_pack
 from flacx.ops.bitpack import words_to_bytes as fx_words_to_bytes
 from flacx.ops.crcfold import crc16_over_word_rows as fx_crc16_rows
 
-from flacx_torch import crc
+from flacx_torch import crc, trace
 from flacx_torch.format import FIXED_PREDICTOR_TAPS, Channels
 from flacx_torch.kernels.frame_pack import frame_pack
 from flacx_torch.kernels.lpc_residual import lpc_residual_zz_plain
@@ -247,11 +247,12 @@ def test_frame_pack_wrapper_is_plain_on_cpu(case):
         PREC, plan)
     pv, pl = emit.partition_param_symbols(t["kind"], plan)
     kesc = plan.k_seg.int() | (plan.esc_seg.int() << 7)
-    before = frame_pack.launches
-    out, length = frame_pack(hdr.values, hdr.lengths, sh_v, sh_l, pv, pl,
-                             t["zz"], t["x"], kesc, t["kind"], t["order"],
-                             t["bps"], 144, MAX_FRAME_BYTES)
-    assert frame_pack.launches == before
+    with trace.recording():
+        before = trace.snapshot()["counters"]
+        out, length = frame_pack(hdr.values, hdr.lengths, sh_v, sh_l, pv,
+                                 pl, t["zz"], t["x"], kesc, t["kind"],
+                                 t["order"], t["bps"], 144, MAX_FRAME_BYTES)
+        assert trace.snapshot()["counters"] == before
     ref, ref_len = pack_frames(hdr, t["kind"], t["order"], t["bps"], t["x"],
                                t["taps"], t["shift"], PREC, t["zz"], plan,
                                144, MAX_FRAME_BYTES)

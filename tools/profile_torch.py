@@ -32,14 +32,18 @@ checkout (e.g. the parent commit's) with this checkout's data.  Prints:
 the wall time per batch, the device time per batch (sum of kernel times)
 and the device's idle share of the window, the kernel time and host time
 of each pipeline stage (profiler ranges around the stage functions), and
-the top device kernels.  Times are taken under the profiler, whose own
-host cost inflates the wall time.
+the top device kernels, and the device's idle time in the window by the
+span of the program's own (``flacx_torch.trace``, on the profiler's
+clock) open in each idle gap: the stage the device waits on (skipped for
+a ``--tree`` checkout without ``flacx_torch/trace.py``).  Times are
+taken under the profiler, whose own host cost inflates the wall time.
 The full kernel table goes to ``<out>/profile_torch.txt``.  Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import functools
 import importlib.util
 import sys
@@ -212,18 +216,63 @@ def profile_decode(torch, args) -> int:
     return 0
 
 
+def program_trace():
+    """The profiled package's ``flacx_torch.trace``, or None where the
+    checkout has none."""
+    try:
+        from flacx_torch import trace
+    except ImportError:
+        return None
+    return trace
+
+
+def idle_by_span(prof, lo: int, hi: int, spans: dict) -> dict:
+    """Seconds of the device's idle gaps in ``[lo, hi]`` (ns) by the
+    program span open at each gap's middle (``none`` where none is; the
+    program's spans do not nest).  Device work is every CUDA-side event
+    but the echoes of the stage ranges."""
+    busy = []
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()) and \
+                not e.name().startswith("stage: "):
+            start = e.start_ns()
+            busy.append((start, start + e.duration_ns()))
+    gaps, at = [], lo
+    for a, b in sorted(busy):
+        a, b = max(a, lo), min(b, hi)
+        if a > at:
+            gaps.append((at, a))
+        at = max(at, b)
+    if hi > at:
+        gaps.append((at, hi))
+    flat = sorted((s, e, name) for name, iv in spans.items() for s, e in iv)
+    starts = [s for s, _, _ in flat]
+    out: dict[str, float] = {}
+    for a, b in gaps:
+        mid = (a + b) // 2
+        i = bisect.bisect_right(starts, mid) - 1
+        name = flat[i][2] if i >= 0 and flat[i][1] >= mid else "none"
+        out[name] = out.get(name, 0.0) + (b - a) / 1e9
+    return out
+
+
 def report(torch, fn, runs: int, batches: int, rest: str, out: str) -> None:
     """Run ``fn`` ``runs`` times under the profiler and print the numbers
     per batch (``batches`` in all)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
+    trace = program_trace()
+    if trace is not None:
+        trace.reset()
     with torch.profiler.profile(activities=acts) as prof:
+        lo = time.time_ns()
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / batches
+        hi = time.time_ns()
     events = prof.key_averages()
     kernels = [e for e in events if self_device_us(e) > 0
                and "CUDA" in str(getattr(e, "device_type", "CUDA"))
@@ -252,6 +301,17 @@ def report(torch, fn, runs: int, batches: int, rest: str, out: str) -> None:
     for e in sorted(kernels, key=self_device_us, reverse=True)[:15]:
         print(f"  {self_device_us(e) / 1e3 / batches:8.3f}  "
               f"x{e.count / batches:<5.4g} {e.key[:90]}")
+    if trace is None:
+        print("device idle by program span: skipped (the package has no "
+              "flacx_torch.trace)")
+    else:
+        idle = idle_by_span(prof, lo, hi, trace.snapshot()["spans"])
+        total = sum(idle.values())
+        print(f"device idle by program span (ms per batch; {total:.3f} s "
+              f"idle of {(hi - lo) / 1e9:.3f} s):")
+        for name, secs in sorted(idle.items(), key=lambda kv: -kv[1]):
+            print(f"  {name:<28} {secs * 1e3 / batches:8.3f}  "
+                  f"({secs / max(total, 1e-12):.1%})")
 
     path = Path(out)
     path.mkdir(parents=True, exist_ok=True)
