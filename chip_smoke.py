@@ -119,8 +119,11 @@ conformance mode, ``<mode>@hibps28``
 ``<mode>@hires6`` on the hi-res ones, ``<mode>@corpus96k`` and
 ``<mode>@corpus_mono`` on the corpus's 24-bit/96 kHz and mono batches,
 ``seq_<mode>@seq16k`` / ``@seq32k`` on the sequence-sharding rows;
-``launches`` counts the launches of that path's counted encode, which
-runs ``batches`` batches; for the ``seq_`` rows the launches of the
+``launches`` counts the launches of that path's counted encode, in
+the ``batches`` of its batches that launch (on the card a stream's
+eager batches and its graph's capture; a replay launches nothing, and
+each counted stream's captures and replays are checked); for the
+``seq_`` rows the launches of the
 three sharded functions on the three meshes), the card's name and power
 limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -644,18 +647,89 @@ def launch_counts() -> dict:
     return {k: got.get("launch." + k, 0) for k in WRAPPERS}
 
 
-def counted_run(fn, needed) -> tuple:
+def graph_counts() -> dict:
+    """What the encode streams did so far, by ``flacx_torch.trace``:
+    ``runs`` of the pipeline that launch its kernels (its ``encode.emit``
+    spans: eager batches and graph captures), graph ``captures`` and
+    ``replays``."""
+    from flacx_torch import trace
+    got = trace.snapshot()
+    return {"runs": len(got["spans"].get("encode.emit", ())),
+            "captures": got["counters"].get("encode.graph_captures", 0),
+            "replays": got["counters"].get("encode.graph_replays", 0)}
+
+
+#: what an eager encode path does: no graph captured, none replayed
+EAGER = {"captures": 0, "replays": 0}
+
+
+def stream_graph(batches: int, seen: bool = False) -> dict:
+    """:func:`graph_counts` of an ``encode_frame_stream`` of ``batches``
+    batches of one shape on the card, unsharded and outside conformance
+    mode, on an encoder without the shape's graph: the shape's first
+    batch (none where ``seen``, the shape having run before) runs
+    eagerly; a later batch that another follows captures the graph, which
+    it and every later batch replay; a last batch with no graph runs
+    eagerly."""
+    runs = captures = replays = 0
+    for i in range(batches):
+        if captures:
+            replays += 1
+        elif not seen:
+            runs, seen = runs + 1, True
+        elif i + 1 < batches:
+            runs, captures, replays = runs + 1, 1, 1
+        else:
+            runs += 1
+    return {"runs": runs, "captures": captures, "replays": replays}
+
+
+def counted_run(fn, needed, graph: dict | None = None) -> tuple:
     """``fn()`` with every launch counted; returns its result and the
-    counts, and fails if a kernel in ``needed`` was launched no time."""
+    counts, and fails if a kernel in ``needed`` was launched no time, or
+    where ``graph`` is given, if a key of it is not what
+    :func:`graph_counts` counted in the run."""
     from flacx_torch import trace
     with trace.recording():
-        before = launch_counts()
+        before, graph_before = launch_counts(), graph_counts()
         out = fn()
         counts = {k: v - before[k] for k, v in launch_counts().items()}
+        ran = {k: v - graph_before[k] for k, v in graph_counts().items()}
     missing = [k for k in needed if counts[k] < 1]
     if missing:
         raise AssertionError(f"path did not launch {missing}: {counts}")
+    if graph is not None and any(ran[k] != v for k, v in graph.items()):
+        raise AssertionError(f"encode stream ran {ran}, expected {graph}")
     return out, counts
+
+
+def counted_frames(torch, enc, planar: np.ndarray, needed,
+                   seen: bool = False) -> tuple:
+    """``enc.encode_frames(planar, 0)`` with every launch counted, on an
+    encoder without the shape's graph (``seen`` where the shape ran in an
+    earlier stream): its eager batches and its capture launch every
+    kernel, its replays none, as :func:`stream_graph` counts, or this
+    fails.  Then, outside the count and the time, the same batches run
+    eagerly (``encode_batch_device`` and the drain) must give the same
+    bytes.  Returns the frames, the counts, the runs that launched (eager
+    batches and captures) and the counted run's seconds."""
+    b = enc.batch_frames
+    graph = stream_graph(-(-len(planar) // b), seen)
+    t0 = time.perf_counter()
+    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
+                                 needed, graph)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if counts["analysis"] != graph["runs"]:    # one launch a pipeline run
+        raise AssertionError(f"launches {counts}, runs {graph}")
+    same = []
+    for s in range(0, len(planar), b):
+        part = planar[s:s + b]
+        same += enc._drain(enc.encode_batch_device(part, s), len(part), None)
+    if same != frames:
+        raise AssertionError("the stream's frames differ from the eager "
+                             "path's")
+    return frames, counts, graph["runs"], first_s
 
 
 def subframe_params(frame) -> tuple:
@@ -742,14 +816,11 @@ def headline_phase(torch, pcm: np.ndarray, streams: dict) -> list[dict]:
     time_rows(torch, rows)
     del captured
 
-    t0 = time.perf_counter()
-    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                 HEADLINE_SPIES)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    frames, counts, runs, first_s = counted_frames(
+        torch, enc, planar, HEADLINE_SPIES, seen=True)
     print(f"main path launches {counts}", flush=True)
     for row in rows:
-        row["launches"], row["batches"] = counts[row["name"]], 1
+        row["launches"], row["batches"] = counts[row["name"]], runs
 
     _, differ = check_frames(frames, planar, cfg, "headline")
     streams["headline"] = (frames, pcm, 44100, 16, N)
@@ -823,21 +894,20 @@ def best_phase(torch, pcm: np.ndarray) -> list[dict]:
         enc = BatchEncoder(best_config(bs), batch_frames=B)
         planar = blocks_of(pcm, bs)
         bs_rows = best_rows(torch, bs, enc, planar)
-        frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                     BEST_PATH)
-        torch.cuda.synchronize()
+        # every window in one launch of analysis a run
+        frames, counts, runs, _ = counted_frames(torch, enc, planar,
+                                                 BEST_PATH)
         batches = -(-len(planar) // B)
-        if counts["analysis"] != batches:  # every window in one launch
-            raise AssertionError(f"best {bs}: launches {counts}")
         for row in bs_rows:
             row["launches"] = counts[row.pop("wrapper")]
-            row["batches"] = batches
+            row["batches"] = runs
         rows += bs_rows
         _, differ = check_frames(frames, planar, enc.config, f"best {bs}")
         size_by_bs[bs] = sum(map(len, frames))
         e2e_ms, dev_ms = time_path(torch, enc, planar, 3)
-        print(f"best {bs}: {len(frames)} frames in {batches} batches, "
-              f"launches {counts}; all CRC-16 valid, 16 decoded bit-exact; "
+        print(f"best {bs}: {len(frames)} frames in {batches} batches "
+              f"({runs} launching), launches {counts}; all CRC-16 valid, "
+              f"16 decoded bit-exact; "
               f"cpu plain path byte-equal on {16 - differ}/16 ({differ} "
               f"chose other coefficients); {size_by_bs[bs]} bytes, ratio "
               f"{size_by_bs[bs] / planar.nbytes:.4f}; encode_frames "
@@ -867,9 +937,10 @@ def wasted_phase(pcm: np.ndarray) -> None:
     noise = rng.integers(-3, 4, (WASTED_FRAMES // 2, N)) * 4
     planar[1::2, 1] = np.clip(planar[1::2, 0] + noise, -32768, 32764)
     cfg = best_config(N, wasted_bits=True)
-    frames, counts = counted_run(
-        lambda: BatchEncoder(cfg, batch_frames=WASTED_FRAMES)
-        .encode_frames(planar, 0), BEST_PATH)
+    import torch
+    frames, counts, _, _ = counted_frames(
+        torch, BatchEncoder(cfg, batch_frames=WASTED_FRAMES), planar,
+        BEST_PATH)
     decoded, differ = check_frames(frames, planar, cfg, "wasted bits",
                                    decode=WASTED_FRAMES)
     virtual = {Channels.L_R: ("L", "R"), Channels.L_S: ("L", "S"),
@@ -991,13 +1062,10 @@ def hires_phase(torch, label: str, streams: dict) -> list[dict]:
     time_rows(torch, rows)
     del captured, zz, args, stats_taps, stats_order
 
-    t0 = time.perf_counter()
-    out, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                              HIRES_PATH)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    out, counts, runs, first_s = counted_frames(torch, enc, planar,
+                                                HIRES_PATH)
     for row in rows:
-        row["launches"], row["batches"] = counts[row.pop("wrapper")], 1
+        row["launches"], row["batches"] = counts[row.pop("wrapper")], runs
     _, differ = check_frames(out, planar, cfg, label, decode=decode,
                              cpu=decode)
     streams[label] = (out, interleaved, 96000, 24, HIRES_N)
@@ -1082,13 +1150,10 @@ def hibps_phase(torch, streams: dict) -> list[dict]:
         time_rows(torch, group)
         del captured
 
-        t0 = time.perf_counter()
-        frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                     HEADLINE_SPIES)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
+        frames, counts, runs, first_s = counted_frames(torch, enc, planar,
+                                                       HEADLINE_SPIES)
         for row in group:
-            row["launches"], row["batches"] = counts[row.pop("wrapper")], 1
+            row["launches"], row["batches"] = counts[row.pop("wrapper")], runs
         rows += group
         _, differ = check_frames(frames, planar, cfg, label,
                                  decode=HIBPS_DECODE, cpu=HIBPS_CPU)
@@ -1126,10 +1191,8 @@ def hibps_phase(torch, streams: dict) -> list[dict]:
     assert k_lr.mac_width(args[3], args[4]) == "wide"
     row = hold(torch, "lpc_allorder@best32", "lpc_allorder", args)
     time_rows(torch, [row])
-    frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                 BEST_PATH)
-    torch.cuda.synchronize()
-    row["launches"], row["batches"] = counts["lpc_allorder"], 1
+    frames, counts, runs, _ = counted_frames(torch, enc, planar, BEST_PATH)
+    row["launches"], row["batches"] = counts["lpc_allorder"], runs
     rows.append(row)
     _, differ = check_frames(frames, planar, cfg, "best32",
                              decode=HIBPS_DECODE)
@@ -1149,8 +1212,10 @@ def hibps_phase(torch, streams: dict) -> list[dict]:
         wav, out = Path(tmp, "in32.wav"), Path(tmp, "out32.flac")
         write_wav(wav, rate, 32, pcm)
         t0 = time.perf_counter()
+        # the CLI's batches of 256 frames
         _, counts = counted_run(lambda: cli.main(
-            ["encode", str(wav), str(out)]), HEADLINE_SPIES)
+            ["encode", str(wav), str(out)]), HEADLINE_SPIES,
+            stream_graph(-(-(len(pcm) // N) // 256)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         data = out.read_bytes()
@@ -1503,7 +1568,7 @@ def conformance_hires(torch, add_s: float) -> list[dict]:
     time_rows(torch, rows)
     del captured
     frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                 CONF_KERNELS)
+                                 CONF_KERNELS, EAGER)
     for row in rows:
         row["launches"] = counts[row["name"].split("@")[0]]
         row["batches"] = 1
@@ -1599,7 +1664,7 @@ def conformance_phase(torch, pcm: np.ndarray) -> list[dict]:
 
     t0 = time.perf_counter()
     frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                 CONF_PATH)
+                                 CONF_PATH, EAGER)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     for row in rows:
@@ -1655,7 +1720,7 @@ def conformance_phase(torch, pcm: np.ndarray) -> list[dict]:
         buf, cd, sample_rate=rate, bps=bps, channels=2, block_size=N,
         max_lpc_order=12, qlp_precision=5,
         partition_orders=(0, 1, 2, 3, 4, 5), batch_frames=FILE_BATCH,
-        conformance=True), CONF_PATH)
+        conformance=True), CONF_PATH, EAGER)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     info = check_flac(buf.getvalue(), cd, rate, bps, (N,), "conformance file")
@@ -1979,15 +2044,30 @@ def file_phase(torch) -> list[dict]:
         encode_to_file = pipeline.encode_to_file
 
         def counted_blocks(f, pcm, **kw):
-            before = launch_counts()
+            before, graph_before = launch_counts(), graph_counts()
             stats = encode_to_file(f, pcm, **kw)
-            per_block[kw["block_size"]] = {
+            b = kw["block_size"]
+            per_block[b] = {
                 k: v - before[k] for k, v in launch_counts().items()}
+            graph = stream_graph(-(-(len(pcm) // b) // FILE_BATCH))
+            got = {k: v - graph_before[k] for k, v in graph_counts().items()}
+            if got != graph:
+                raise AssertionError(f"--best {b}: stream ran {got}, "
+                                     f"expected {graph}")
             return stats
 
         captured, launched = {}, {}
         for label, (key, flags, needed) in FILE_RUNS.items():
             pcm, rate, bps = inputs[key]
+            blocks = BEST_BLOCKS if label == "best" else (
+                int(flags[1]) if flags else N,)
+            batches = {b: -(-(len(pcm) // b) // FILE_BATCH) for b in blocks}
+            # each block size's stream on an encoder of its own: its eager
+            # batches and its capture launch the kernels, replays do not
+            graphs = {b: stream_graph(n) for b, n in batches.items()}
+            graph = {k: sum(g[k] for g in graphs.values())
+                     for k in ("runs", "captures", "replays")}
+            runs = {b: g["runs"] for b, g in graphs.items()}
             spies, restore = capture_main_path_inputs(
                 ("analysis", "lpc_residual_res", "lpc_residual_zz",
                  "lpc_allorder", "rice_stats", "frame_pack"), per_block=True)
@@ -1998,7 +2078,7 @@ def file_phase(torch) -> list[dict]:
             try:
                 t0 = time.perf_counter()
                 data, counts = counted_run(lambda: encode(wavs[key], flags),
-                                           needed)
+                                           needed, graph)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             finally:
@@ -2006,21 +2086,18 @@ def file_phase(torch) -> list[dict]:
                 pipeline._oracle_frame = oracle_frame
                 pipeline.encode_to_file = encode_to_file
             captured[label] = spies
-            blocks = BEST_BLOCKS if label == "best" else (
-                int(flags[1]) if flags else N,)
             info = check_flac(data, pcm, rate, bps, blocks, label)
             decode_file(cli, out, pcm, label, len(pcm) / rate, tmp)
             tails = sum(len(pcm) % b != 0 for b in blocks)
             if len(oracle_s) != tails:
                 raise AssertionError(f"{label}: {len(oracle_s)} oracle "
                                      f"frames, expected {tails} (the tails)")
-            batches = {b: -(-(len(pcm) // b) // FILE_BATCH) for b in blocks}
-            launched[label] = (counts, dict(per_block), batches)
+            launched[label] = (counts, dict(per_block), runs)
             if label == "b1152":
-                if (counts["lpc_residual_res"] != batches[1152]
+                if (counts["lpc_residual_res"] != runs[1152]
                         or counts["lpc_residual_stats"]):
                     raise AssertionError(f"b1152: launches {counts}, "
-                                         f"{batches[1152]} batches")
+                                         f"{runs[1152]} runs")
             if label == "best":
                 cfg = EncoderConfig(bps=24, sample_rate=MASTER_RATE,
                                     order_search="exact",
@@ -2028,8 +2105,8 @@ def file_phase(torch) -> list[dict]:
                 if k_lr.mac_width(cfg.eff_bps, cfg.sum_taps_max) != "wide":
                     raise AssertionError("best: not the wide MAC")
                 for b in blocks:
-                    if (per_block[b]["lpc_allorder"] != 3 * batches[b]
-                            or per_block[b]["analysis"] != batches[b]):
+                    if (per_block[b]["lpc_allorder"] != 3 * runs[b]
+                            or per_block[b]["analysis"] != runs[b]):
                         raise AssertionError(f"best {b}: launches "
                                              f"{per_block[b]}")
             seconds = len(pcm) / rate
@@ -2043,9 +2120,10 @@ def file_phase(torch) -> list[dict]:
                   f"{total} frame bytes, ratio "
                   f"{total / (pcm.size * bps // 8):.4f}; launches {counts}"
                   + (f" by block {per_block}" if label == "best" else "")
-                  + f"; batches {batches}; STREAMINFO, MD5, every CRC-8 and "
-                  f"CRC-16 right, {FILE_DECODE} sampled frames and the last "
-                  "decoded bit-exact", flush=True)
+                  + f"; batches {batches}, {runs} launching; STREAMINFO, "
+                  f"MD5, every CRC-8 and CRC-16 right, {FILE_DECODE} "
+                  "sampled frames and the last decoded bit-exact",
+                  flush=True)
 
             excerpt = wavs[key + "-excerpt"]
             t0 = time.perf_counter()
@@ -2064,11 +2142,11 @@ def file_phase(torch) -> list[dict]:
     assert zz_fix_args[1].shape[-1] == 4
 
     def file_row(name, label, wrapper, b, args):
-        counts, per_block, batches = launched[label]
+        counts, per_block, runs = launched[label]
         row = hold(torch, name, wrapper, args)
         row["launches"] = (per_block[b] if label == "best" else
                            counts)[wrapper]
-        row["batches"] = batches[b]
+        row["batches"] = runs[b]
         return row
 
     def pack_row(label, b):
@@ -2314,7 +2392,8 @@ def corpus_phase(torch) -> list[dict]:
                     t0 = time.perf_counter()
                     _, counts = counted_run(lambda: cli.main(
                         ["encode-corpus", *flags, str(out),
-                         *map(str, paths), str(bad)]), HEADLINE_SPIES)
+                         *map(str, paths), str(bad)]), HEADLINE_SPIES,
+                        EAGER)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
             finally:
@@ -2776,7 +2855,7 @@ def dryrun_phase() -> None:
     t0 = time.perf_counter()
     _, counts = counted_run(
         lambda: dryrun_multichip(4, devices=("cuda:0",) * 4),
-        HEADLINE_SPIES + DECODE_PATH + ("seq_autocorr",))
+        HEADLINE_SPIES + DECODE_PATH + ("seq_autocorr",), EAGER)
     print(f"dryrun phase: {time.perf_counter() - t0:.1f} s, launches "
           f"{used(counts)}", flush=True)
 
@@ -2821,7 +2900,7 @@ def sharded_phase(torch, pcm: np.ndarray, headline: tuple) -> None:
     for label, sh in list(shardings.items())[1:]:
         enc = BatchEncoder(cfg, B, sharding=sh)
         frames, counts = counted_run(lambda: enc.encode_frames(planar, 0),
-                                     HEADLINE_SPIES)
+                                     HEADLINE_SPIES, EAGER)
         if frames != want:
             raise AssertionError(f"sharded {label}: headline frames differ")
         _, wall = timed(lambda: enc.encode_frames(planar, 0))

@@ -29,8 +29,10 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -209,6 +211,34 @@ def analysis_windows(cfg: EncoderConfig, device: torch.device,
         for name in cfg.windows]).to(device)
 
 
+class _Constants(NamedTuple):
+    """What ``_encode_batch`` reads of a configuration on a device, built
+    once (a copy to the card each batch would be illegal in a captured
+    graph, and costs host time eagerly)."""
+    bps_v: torch.Tensor           # [V] int64 each virtual channel's width
+    fixed_taps: torch.Tensor      # [5, 4] FIXED_PREDICTOR_TAPS
+    pairs: torch.Tensor | None    # [4, 2] each stereo mode's channel pair
+    codes: torch.Tensor | None    # [4] int32 each stereo mode's code
+    win_pow: tuple[float, ...]    # each window's mean power
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(cfg: EncoderConfig, dev: torch.device) -> _Constants:
+    if cfg.use_stereo_modes:
+        bps_list = [cfg.bps] * 3 + [cfg.bps + 1]
+        pairs = torch.tensor([m[1] for m in _STEREO_MODES], device=dev)
+        codes = torch.tensor([int(m[0]) for m in _STEREO_MODES],
+                             dtype=torch.int32, device=dev)
+    else:
+        bps_list = [cfg.bps] * cfg.channels
+        pairs = codes = None
+    return _Constants(
+        torch.tensor(bps_list, dtype=torch.int64, device=dev),
+        torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev), pairs, codes,
+        tuple(float(np.mean(apodization_window_np(name, cfg.block_size)
+                            ** 2)) for name in cfg.windows))
+
+
 def shared_trailing_zeros(x: torch.Tensor) -> torch.Tensor:
     """Low zero bits shared by every sample of each row of int32 ``x
     [..., n]``: the least trailing-zero count of its samples, 63 for a row
@@ -255,6 +285,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
         kmax = cfg.kmax
         exact = cfg.order_search == "exact"
         dev = pcm.device
+        const = _constants(cfg, dev)
         indices = frame_indices(frame_index, b, dev)
         if windows is None:
             windows = analysis_windows(cfg, dev)
@@ -272,13 +303,10 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
             right = pcm[:, 1].to(torch.int32)
             x_v = torch.stack([left, right, (left + right) >> 1,
                                left - right], dim=1)             # [B, 4, N]
-            bps_list = [cfg.bps] * 3 + [cfg.bps + 1]
         else:
             x_v = pcm.to(torch.int32).contiguous()
-            bps_list = [cfg.bps] * cfg.channels
         nv = x_v.shape[1]
-        bps_v = torch.tensor(bps_list, dtype=torch.int64,
-                             device=dev).expand(b, nv)               # [B, V]
+        bps_v = const.bps_v.expand(b, nv)                            # [B, V]
 
         # ----- wasted bits: strip each virtual channel's shared low zeros ----
         if cfg.wasted_bits:
@@ -303,7 +331,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
         # depend on the window; without LPC only the sums are used
         autoc_w, fzz_sum = analysis(x_v, windows if p else windows[:1], p,
                                     eff_bps=cfg.eff_bps)
-        for wi, name in enumerate(cfg.windows if p else ()):
+        for wi in range(len(cfg.windows) if p else 0):
             autoc = autoc_w[:, :, wi]
             taps_f, lpc_err, valid_ld = levinson_all_orders(autoc, p)
             # Levinson returns the analysis polynomial a[1:]; the prediction
@@ -317,9 +345,8 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
                 # window's average power so fixed (unwindowed) and LPC
                 # estimates, and different windows, compare;
                 # E|r| ≈ sqrt(2/π)·σ
-                win_pow = float(np.mean(apodization_window_np(name, n) ** 2))
                 sigma = torch.sqrt(torch.clamp(lpc_err, min=0.0)
-                                   / (n * win_pow))
+                                   / (n * const.win_pow[wi]))
                 mean_abs = math.sqrt(2.0 / math.pi) * sigma
                 lzz_w = (2.0 * mean_abs * lcounts.double()).long()
                 lmax_w = None
@@ -381,8 +408,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
 
         # each virtual channel's chosen taps, merged across the two families
         # and padded to max_taps
-        taps_fix4 = torch.from_numpy(FIXED_PREDICTOR_TAPS).to(dev)[
-            fixed_order.long()]                                  # [B, V, 4]
+        taps_fix4 = const.fixed_taps[fixed_order.long()]         # [B, V, 4]
         taps_fix = torch.nn.functional.pad(taps_fix4, (0, t - 4))
         taps_lpc = torch.nn.functional.pad(taps_lpc_v,
                                            (0, t - taps_lpc_v.shape[-1]))
@@ -427,9 +453,7 @@ def _encode_batch(cfg: EncoderConfig, pcm: torch.Tensor, frame_index,
 
         # ----- stereo mode / channel selection -------------------------------
         if cfg.use_stereo_modes:
-            pairs = torch.tensor([m[1] for m in _STEREO_MODES], device=dev)
-            codes = torch.tensor([int(m[0]) for m in _STEREO_MODES],
-                                 dtype=torch.int32, device=dev)
+            pairs, codes = const.pairs, const.codes
             mode_cost = cost_v[:, pairs[:, 0]] + cost_v[:, pairs[:, 1]]
             mode = mode_cost.argmin(-1)                                  # [B]
             ch_code = codes[mode]
@@ -511,13 +535,43 @@ def _fetch(result, valid: int, key: str, width: int | None = None,
         return np.concatenate(out)
 
 
-def _upload(arr: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """``arr`` copied to ``dev`` (span ``encode.upload``; its bytes counted
-    in ``copy.h2d_bytes``)."""
+def _upload(arr: torch.Tensor, dev: torch.device,
+            into: torch.Tensor | None = None) -> torch.Tensor:
+    """``arr`` copied to ``dev``, into ``into`` where given (span
+    ``encode.upload``; its bytes counted in ``copy.h2d_bytes``)."""
     with trace.span("encode.upload"), on_device(dev):
-        x = arr.to(dev)
+        x = arr.to(dev) if into is None else into.copy_(arr)
     trace.count("copy.h2d_bytes", x.nbytes)
     return x
+
+
+def _shape_key(pcm) -> tuple:
+    """A batch's shape and dtype, which key its captured graph."""
+    arr = torch.as_tensor(pcm)
+    return tuple(arr.shape), arr.dtype
+
+
+class _Graph:
+    """``_encode_batch`` captured as one CUDA graph for one batch shape:
+    its static PCM input, the batch's first frame index as a device
+    scalar, and the outputs that every replay overwrites.  Capture runs
+    the stage spans and counts the launches once; a replay runs neither."""
+
+    def __init__(self, cfg: EncoderConfig, shape: tuple, dtype: torch.dtype,
+                 dev: torch.device, windows: torch.Tensor):
+        self.pcm = torch.empty(shape, dtype=dtype, device=dev)
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _encode_batch(cfg, self.pcm, self.index, windows)
+
+    def replay(self, index: int) -> dict:
+        """The outputs for a batch whose PCM is in :attr:`pcm` and whose
+        first frame is ``index``, copied out of the graph's memory so that
+        they outlive the next replay."""
+        self.index.fill_(index)
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.out.items()}
 
 
 class BatchEncoder:
@@ -530,6 +584,17 @@ class BatchEncoder:
     launched on its device before any is read back, and the drain joins
     them in frame order.  ``device`` must then name the mesh's device type
     (and, with an index, one of its devices).
+
+    On the card, unsharded and outside conformance mode,
+    :meth:`encode_frame_stream` replays ``_encode_batch`` as one CUDA
+    graph a batch: the first batch of each shape runs eagerly (it sets up
+    the constants, the kernel libraries and their shared-memory opt-in);
+    a later batch that another batch of its shape follows in its stream
+    captures the graph, kept on the encoder for later streams (so a
+    stream of two batches on a new encoder stays eager: one replay would
+    not repay the capture).
+    :meth:`encode_batch_device` and :meth:`encode_batch_indexed` always
+    run eagerly.
     """
 
     def __init__(self, config: EncoderConfig, batch_frames: int = 32,
@@ -542,6 +607,11 @@ class BatchEncoder:
         self._part_windows = {dev: analysis_windows(config, dev)
                               for dev in dict.fromkeys(devs)}
         self._windows = self._part_windows[self.device]
+        self._graphed = (self.device.type == "cuda" and sharding is None
+                         and not config.conformance)
+        #: by batch shape and dtype: None once its first batch ran
+        #: eagerly, then its captured graph
+        self._graphs: dict[tuple, _Graph | None] = {}
 
     def encode_batch_device(self, pcm, first_index: int):
         """Run the pipeline on ``[B, channels, N]`` int16 or int32 PCM
@@ -549,7 +619,7 @@ class BatchEncoder:
         :func:`_encode_batch`, under ``sharding`` a list of such dicts,
         one a part in frame order.  int16 input crosses to the device as
         int16 and is widened there."""
-        return self._run(pcm, int(first_index))
+        return self._run(self._checked(pcm), int(first_index))
 
     def encode_batch_indexed(self, pcm, frame_indices):
         """:meth:`encode_batch_device` with a per-frame coded number:
@@ -560,9 +630,11 @@ class BatchEncoder:
         if tuple(idx.shape) != (len(pcm),):
             raise ValueError(f"frame indices of shape {tuple(idx.shape)} "
                              f"for a batch of {len(pcm)} frames")
-        return self._run(pcm, idx)
+        return self._run(self._checked(pcm), idx)
 
-    def _run(self, pcm, index):
+    def _checked(self, pcm) -> torch.Tensor:
+        """``pcm`` as a tensor; raises unless int16 or int32 ``[B,
+        channels, block_size]``."""
         arr = torch.as_tensor(pcm)
         if arr.dtype not in (torch.int16, torch.int32):
             raise TypeError(f"PCM must be int16 or int32, got {arr.dtype}")
@@ -571,6 +643,9 @@ class BatchEncoder:
             raise ValueError(f"PCM shape {tuple(arr.shape)} does not match "
                              f"[B, {self.config.channels}, "
                              f"{self.config.block_size}]")
+        return arr
+
+    def _run(self, arr: torch.Tensor, index):
         if self.sharding is None:
             x = _upload(arr, self.device)
             with on_device(self.device):
@@ -584,6 +659,38 @@ class BatchEncoder:
                 parts.append(_encode_batch(self.config, x, part_index,
                                            self._part_windows[dev]))
         return parts
+
+    def _capture_due(self, pcm) -> bool:
+        """Whether a batch like ``pcm`` would capture its shape's graph
+        were another of its shape to follow: the shape has run eagerly
+        and has no graph yet."""
+        key = _shape_key(pcm)
+        return key in self._graphs and self._graphs[key] is None
+
+    def _replay(self, pcm, first_index: int, follows: bool) -> dict:
+        """A batch of :meth:`encode_frame_stream` on the card.  Without a
+        graph of its shape it runs eagerly where it is the shape's first
+        batch or ``follows`` is false (no batch of its shape comes next),
+        else it captures the graph (counter ``encode.graph_captures``).
+        With the graph it replays it (span ``encode.replay``: the index
+        write, the replay and the outputs' copies; counter
+        ``encode.graph_replays``)."""
+        arr, first_index = self._checked(pcm), int(first_index)
+        key = _shape_key(arr)
+        graph = self._graphs.get(key)
+        if graph is None:
+            if key not in self._graphs or not follows:
+                self._graphs[key] = None
+                return self._run(arr, first_index)
+            with on_device(self.device):
+                graph = self._graphs[key] = _Graph(
+                    self.config, *key, self.device, self._windows)
+            trace.count("encode.graph_captures")
+        _upload(arr, self.device, into=graph.pcm)
+        with trace.span("encode.replay"), on_device(self.device):
+            out = graph.replay(first_index)
+        trace.count("encode.graph_replays")
+        return out
 
     def _drain(self, result, valid: int, stats: dict | None,
                pcm: np.ndarray | None = None, index0: int = 0,
@@ -638,15 +745,46 @@ class BatchEncoder:
         shape; pad frames are encoded and discarded).  At most two batches
         are in flight: batch ``i+1`` is dispatched to the device before
         batch ``i`` is fetched and cut into frames.  Under conformance each
-        batch's PCM is kept until its drain, for the overflow frames.
+        batch's PCM is kept until its drain, for the overflow frames.  On
+        the card, unsharded and outside conformance mode, batches replay a
+        captured graph of the pipeline (the class's notes); where a batch
+        would capture it, the next batch is taken from ``batches`` before
+        it is dispatched, to see whether one follows.
 
         ``stats``, if given, accumulates subframe-kind and stereo-mode
         histograms plus total frame bytes.
         """
-        bsz = self.batch_frames
         keep_pcm = self.config.conformance
         index = first_index
         pending = []
+        queue = self._padded(batches)
+        ahead = next(queue, None)
+        while ahead is not None:
+            (chunk, valid), ahead = ahead, None
+            if not self._graphed:
+                result = self.encode_batch_device(chunk, index)
+            else:
+                follows = False
+                if self._capture_due(chunk):
+                    ahead = next(queue, None)
+                    follows = (ahead is not None and _shape_key(ahead[0])
+                               == _shape_key(chunk))
+                result = self._replay(chunk, index, follows)
+            pending.append((result, valid,
+                            np.asarray(chunk) if keep_pcm else None, index))
+            index += valid
+            if len(pending) == 2:
+                result, valid, pcm, index0 = pending.pop(0)
+                yield from self._drain(result, valid, stats, pcm, index0)
+            if ahead is None:
+                ahead = next(queue, None)
+        for result, valid, pcm, index0 in pending:
+            yield from self._drain(result, valid, stats, pcm, index0)
+
+    def _padded(self, batches):
+        """Each group of ``batches`` zero-padded to the batch shape, with
+        its count of real frames."""
+        bsz = self.batch_frames
         for chunk in batches:
             valid = chunk.shape[0]
             if valid > bsz:
@@ -656,14 +794,7 @@ class BatchEncoder:
                 chunk = np.concatenate(
                     [chunk, np.zeros((bsz - valid, *chunk.shape[1:]),
                                      chunk.dtype)], axis=0)
-            pending.append((self.encode_batch_device(chunk, index), valid,
-                            np.asarray(chunk) if keep_pcm else None, index))
-            index += valid
-            if len(pending) == 2:
-                result, valid, pcm, index0 = pending.pop(0)
-                yield from self._drain(result, valid, stats, pcm, index0)
-        for result, valid, pcm, index0 in pending:
-            yield from self._drain(result, valid, stats, pcm, index0)
+            yield chunk, valid
 
     def encode_frames(self, pcm: np.ndarray, first_index: int,
                       stats: dict | None = None) -> list[bytes]:

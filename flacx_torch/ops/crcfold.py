@@ -73,6 +73,14 @@ def inverse_power_table(width: int, poly_with_top: int,
     return out
 
 
+@lru_cache(maxsize=None)
+def _power_table_on(width: int, poly_with_top: int, max_len: int,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`power_table` on ``device``, copied there once."""
+    return torch.from_numpy(power_table(width, poly_with_top, max_len)) \
+        .to(device)
+
+
 def _xor_reduce(x: torch.Tensor) -> torch.Tensor:
     """XOR-reduce the last axis via a log-depth pairwise tree."""
     while x.shape[-1] > 1:
@@ -112,8 +120,7 @@ def crc_fold(byte_vals: torch.Tensor, distances: torch.Tensor,
       ``[...]`` int64 CRC (width bits).
     """
     max_len = byte_vals.shape[-1] + 1
-    tab = torch.from_numpy(power_table(width, poly_with_top, max_len)) \
-        .to(byte_vals.device)
+    tab = _power_table_on(width, poly_with_top, max_len, byte_vals.device)
     k = tab[torch.clamp(distances, 0, max_len - 1).long()]
     b = byte_vals.long()
     prod = torch.zeros_like(k)

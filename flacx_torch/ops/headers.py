@@ -10,6 +10,7 @@ field is per frame (the stereo mode is chosen per frame).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -27,11 +28,22 @@ _CN_THRESHOLDS = (7, 11, 16, 21, 26, 31)
 _CN_PREFIX = (0x00, 0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE)
 
 
+@lru_cache(maxsize=None)
+def _cn_prefix(device: torch.device) -> torch.Tensor:
+    """:data:`_CN_PREFIX` on ``device``, built once a device."""
+    return torch.tensor(_CN_PREFIX, dtype=torch.int64, device=device)
+
+
 def frame_indices(frame_index, b: int, device: torch.device) -> torch.Tensor:
     """Each frame's coded number, ``[b]`` int64 on ``device``: a scalar
     ``frame_index`` is the first of ``b`` consecutive frames, a ``[b]``
     array or tensor gives every frame its own (a corpus batch mixes the
-    frames of many files).  An array of another shape raises."""
+    frames of many files).  An array of another shape raises.  A 0-d
+    tensor is read on the device, never on the host: a captured graph's
+    input, written before each replay."""
+    if isinstance(frame_index, torch.Tensor) and not frame_index.ndim:
+        return frame_index.to(device, torch.int64) + torch.arange(
+            b, dtype=torch.int64, device=device)
     if isinstance(frame_index, (torch.Tensor, np.ndarray)) \
             and frame_index.ndim:
         if tuple(frame_index.shape) != (b,):
@@ -77,7 +89,7 @@ def frame_header_symbols(frame_index: torch.Tensor, ch_code: torch.Tensor,
     b3 = (ch_code.long() << 4) | (SAMPLE_SIZE_FROM_STREAMINFO << 1)
 
     # coded-number byte slots 0..6
-    prefix = torch.tensor(_CN_PREFIX, dtype=torch.int64, device=dev)[size - 1]
+    prefix = _cn_prefix(dev)[size - 1]
     top = (idx >> (6 * (size - 1))) & 0xFFFFFFFF
     cn0 = torch.where(size == 1, idx & 0xFFFFFFFF, prefix | top)
     cn_vals, cn_lens = [cn0], [full(8)]

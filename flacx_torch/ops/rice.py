@@ -11,6 +11,7 @@ positions ``i < order``, ``order`` is ``[...]``.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Sequence
 
 import torch
@@ -261,6 +262,19 @@ def exact_plan(zz: torch.Tensor, order: torch.Tensor,
                               esc_seg, order, n)
 
 
+@lru_cache(maxsize=None)
+def _param_positions(n: int, psize_min: int, device: torch.device,
+                     ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """The param-slot positions ``pos_p`` (int32) and the finest segment
+    of each (int64) on ``device``, built once; None where every sample
+    is a position (one-sample partitions)."""
+    ppos = sorted(set(range(min(33, n))) | set(range(0, n, psize_min)))
+    if len(ppos) == n and psize_min == 1:
+        return None
+    pos_p = torch.tensor(ppos, dtype=torch.int32, device=device)
+    return pos_p, (pos_p // psize_min).long()
+
+
 def plan_from_segments(bits: torch.Tensor, porder: torch.Tensor,
                        width: torch.Tensor, k_seg: torch.Tensor,
                        esc_seg: torch.Tensor, order: torch.Tensor,
@@ -279,12 +293,11 @@ def plan_from_segments(bits: torch.Tensor, porder: torch.Tensor,
     order_c = order[..., None]
     param_start = ((i % psz_best == 0) & (i > 0)) | (i == order_c)
 
-    ppos = sorted(set(range(min(33, n))) | set(range(0, n, psize_min)))
-    if len(ppos) == n and psize_min == 1:
+    positions = _param_positions(n, psize_min, dev)
+    if positions is None:
         k_param, esc_param, start_param = k_seg, esc_seg, param_start
     else:
-        pos_p = torch.tensor(ppos, dtype=torch.int32, device=dev)
-        part_idx = (pos_p // psize_min).long()
+        pos_p, part_idx = positions
         k_param = k_seg[..., part_idx]
         esc_param = esc_seg[..., part_idx]
         start_param = (((pos_p % psz_best) == 0) & (pos_p > 0)) \
