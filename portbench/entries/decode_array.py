@@ -16,7 +16,7 @@ import time
 
 import numpy as np
 
-from portbench import pcmgen, reference, roofline
+from portbench import pcmgen, roofline
 
 WRAPPERS = ("bit_unpack", "reconstruct", "crc16_rows")
 #: chance that a call of the window is kept for the comparison
@@ -28,7 +28,7 @@ class Entry:
 
     def __init__(self, ctx):
         self.ctx = ctx
-        self.fmt = ctx.fmt
+        self.ref, self.fmt = ctx.ref, ctx.fmt
         t = ctx.traffic
         self.bf = int(t["batch_frames"])
         self.check = t["check"]
@@ -58,7 +58,7 @@ class Entry:
             frames = enc.encode_frames(pcmgen.blocks(pcm, n), 0)
             self.pcm.append(pcm)
             self.frames.append(frames)
-            self.streams.append(reference.stream_bytes(frames, fmt, f * n))
+            self.streams.append(self.ref.stream_bytes(frames, fmt, f * n))
         del enc
         for data in self.streams[:int(t.get("warmup_streams", 1))]:
             self._call(data)
@@ -170,7 +170,7 @@ class Entry:
         for i, (s, f) in enumerate(self.sample_frames()):
             want = self.pcm[s][:, f * n:(f + 1) * n]
             try:
-                got = reference.decode_frame(self.frames[s][f], self.fmt)
+                got = self.ref.decode_frame(self.frames[s][f], self.fmt)
             except (ValueError, EOFError, IndexError, KeyError,
                     OverflowError) as e:
                 ref_bad += want.size
@@ -194,8 +194,8 @@ class Entry:
         out = []
         for s, f in self.sample_frames():
             try:
-                out.append(reference.decode_frame(self.frames[s][f],
-                                                  self.fmt, arithmetic))
+                out.append(self.ref.decode_frame(self.frames[s][f],
+                                                 self.fmt, arithmetic))
             except (ValueError, EOFError, IndexError, KeyError,
                     OverflowError):
                 out.append(np.full((self.fmt.channels, self.fmt.block_size),

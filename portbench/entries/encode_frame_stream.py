@@ -15,7 +15,7 @@ import time
 
 import numpy as np
 
-from portbench import pcmgen, reference, roofline
+from portbench import pcmgen, roofline
 
 #: kernel wrappers of the encode path, by the module that calls them
 WRAPPERS = {"flacx_torch.encoder": ("analysis", "lpc_residual_stats",
@@ -31,7 +31,7 @@ class Entry:
 
     def __init__(self, ctx):
         self.ctx = ctx
-        self.fmt = ctx.fmt
+        self.ref, self.fmt = ctx.ref, ctx.fmt
         t = ctx.traffic
         self.b = int(t["batch_frames"])
         self.check = t["check"]
@@ -66,7 +66,6 @@ class Entry:
         self.index += warm * self.b
 
     def spans(self, spans) -> None:
-        spans.wrap(self.encoder, "_encode_batch", "encode_batch")
         spans.wrap(self.encoder.BatchEncoder, "_drain", "drain")
 
     def run_window(self, seconds: float, stats: dict | None = None,
@@ -163,37 +162,36 @@ class Entry:
     def checks(self, frames=None) -> tuple[dict, list]:
         """The numbers compared, and notes for standard error.
         ``frames`` replaces the kept frames' bytes (the control)."""
-        fmt = self.fmt
+        ref, fmt = self.ref, self.fmt
         kept = self.kept if frames is None else [
             (f,) + k[1:] for f, k in zip(frames, self.kept)]
         bad = excess = mismatch = compared = dec_bad = 0
         notes = []
         for i, (frame, item, pos, index) in enumerate(kept):
             pcm = self.pool[item][pos]
-            fields, why = reference.check_frame(frame, fmt, pcm, index)
+            fields, why = ref.check_frame(frame, fmt, pcm, index)
             if why is not None:
                 bad += 1
                 if len(notes) < 5:
                     notes.append(f"frame {index} (pool {item}:{pos}): {why}")
             if fields is None:
                 continue
-            code, subs = reference.choose(pcm, fmt)
-            signals, _ = reference.channel_signals(pcm, fmt, fields.code)
+            code, subs = ref.choose(pcm, fmt)
+            signals, _ = ref.channel_signals(pcm, fmt, fields.code)
             for c, sf in enumerate(fields.subframes):
                 compared += 1
                 if fields.code != code or sf.key() != subs[c].key():
                     mismatch += 1
                 if sf.plan is not None:
-                    r = reference.residual(signals[c] >> fields.wasted[c],
-                                           sf.kind, sf.order, sf.coefs,
-                                           sf.shift)
+                    r = ref.residual(signals[c] >> fields.wasted[c],
+                                     sf.kind, sf.order, sf.coefs, sf.shift)
                     zz = np.concatenate([np.zeros(sf.order, np.int64),
-                                         reference.zigzag(r)])
-                    best = reference.rice_optimum(zz, sf.order, fmt)
+                                         ref.zigzag(r)])
+                    best = ref.rice_optimum(zz, sf.order, fmt)
                     excess += max(sf.plan.bits - best.bits, 0)
             if i < int(self.check["decode_frames"]):
                 try:
-                    got = reference.decode_frame(frame, fmt)
+                    got = ref.decode_frame(frame, fmt)
                     dec_bad += int((got != pcm).sum())
                 except (ValueError, EOFError, IndexError, KeyError,
                     OverflowError):
@@ -207,9 +205,13 @@ class Entry:
     def control(self, arithmetic: str) -> list:
         """The reference encoder at ``arithmetic`` in the program's place:
         its frames for the kept positions."""
-        return [reference.encode_frame(self.pool[item][pos], self.fmt,
-                                       index, arithmetic)[0]
-                for _, item, pos, index in self.kept]
+        ref, fmt = self.ref, self.fmt
+        out = []
+        for _, item, pos, index in self.kept:
+            pcm = self.pool[item][pos]
+            out.append(ref.write_frame(pcm, fmt, index,
+                                       *ref.choose(pcm, fmt, arithmetic)))
+        return out
 
     def histogram(self, stats: dict) -> str:
         return (f"subframe kinds {stats.get('subframe_kinds')}, stereo "

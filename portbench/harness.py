@@ -1,7 +1,9 @@
 """Everything ``run.py`` finds by name: the cell in ``BENCHMARK.json``,
-its configuration file, its traffic file, the entry that drives the
-traffic (``portbench/entries/<entry>.py``) and each per-layer metric's
-reader (``portbench/metrics/<name>.py``)."""
+its configuration file, the plain reference that judges it
+(``portbench/references/<name>.py``, or ``portbench/reference.py``), its
+traffic file, the entry that drives the traffic
+(``portbench/entries/<entry>.py``) and each per-layer metric's reader
+(``portbench/metrics/<name>.py``)."""
 
 from __future__ import annotations
 
@@ -36,6 +38,18 @@ def config_file(bench: dict, name: str, root: Path) -> dict:
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
 
 
+def reference_module(cfg: dict):
+    """The plain reference that judges configuration ``cfg``: the module
+    ``portbench.references.<name>`` that its ``reference`` key names,
+    else ``portbench.reference`` (interface: ``portbench.references``)."""
+    name = cfg.get("reference")
+    if name is None:
+        return reference
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise ValueError(f"bad reference name {name!r}")
+    return importlib.import_module(f"portbench.references.{name}")
+
+
 def traffic_file(name: str) -> dict:
     return json.loads((HERE / "traffic" / f"{name}.json").read_text())
 
@@ -68,8 +82,9 @@ def context(root: Path, workload: str, seed: int, device,
     w = spec or cell(bench, workload)
     cfg = config_file(bench, w["config"], root)
     traffic = traffic_file(w["traffic"])
+    ref = reference_module(cfg)
     return SimpleNamespace(bench=bench, cell=w, config=cfg, traffic=traffic,
-                           fmt=reference.Format.from_config(cfg),
+                           ref=ref, fmt=ref.Format.from_config(cfg),
                            seed=seed, device=device)
 
 

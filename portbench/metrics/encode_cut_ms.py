@@ -2,8 +2,7 @@
 bytes and the histograms. Read from the program's own span encode.cut
 (flacx_torch.trace) over the profiled window, whose host times carry
 torch.profiler's CPU activity cost: compare with the other stages, or
-with this metric in another commit, not with encode_enqueue_ms (layer:
-encode entry)."""
+with this metric in another commit (layer: encode entry)."""
 
 from portbench import program
 

@@ -9,14 +9,15 @@ without one, and the kernel bounds are counted after it.  So in a run of
 a reader divides by that window's batches (``record["trace"]
 ["batches"]``).  Its host times are taken under ``torch.profiler``'s CPU
 activity, which adds host cost to every op: compare a stage with the
-other stages, or with the same metric in another commit, never with
-``encode_enqueue_ms`` (the unprofiled window).
+other stages, or with the same metric in another commit.
 
 Each reader returns None, and never raises, where there is nothing to
 read: another entry than the encode's, a program without
 ``flacx_torch.trace`` (an older checkout), or a registry that does not
-match the window (its count of ``encode.emit`` spans, one a batch, is not
-the window's batches).
+match the window (its count of ``encode.cut`` spans is not the window's
+batches: ``BatchEncoder._drain`` enters it once a batch, whether the
+batch ran eagerly or replayed a captured graph, and the window drains
+every batch it pulls).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _encode_snapshot(record: dict):
     except ImportError:
         return None, 0
     snap = trace.snapshot()
-    if len(snap["spans"].get("encode.emit", ())) != batches:
+    if len(snap["spans"].get("encode.cut", ())) != batches:
         return None, 0
     return snap, batches
 

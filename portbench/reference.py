@@ -20,6 +20,10 @@ the outputs it judges.  It holds what decides ``correct``:
 
 Streams are a ``fLaC`` marker, one STREAMINFO block and the frames
 (:func:`stream_bytes`).
+
+It judges every configuration that names no reference of its own
+(``portbench.references``); :meth:`Format.from_config` refuses one it
+cannot judge.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ class Format:
                 or len(enc.get("windows", ["tukey(0.5)"])) != 1:
             raise ValueError("the reference works out the estimate order "
                              "search under one window, without wasted "
-                             "bits or conformance mode")
+                             "bits or conformance mode: name a reference "
+                             "of its own (portbench.references)")
         return cls(sample_rate=enc["sample_rate"], bps=enc["bps"],
                    channels=enc["channels"], block_size=enc["block_size"],
                    max_lpc_order=enc["max_lpc_order"],
@@ -642,14 +647,6 @@ def write_frame(pcm: np.ndarray, fmt: Format, index: int, code: int,
                        wasted[c] if wasted else 0)
     body = w.to_bytes()
     return body + crc16(body).to_bytes(2, "big")
-
-
-def encode_frame(pcm: np.ndarray, fmt: Format, index: int,
-                 precision: str | None = None) -> tuple:
-    """The reference encoder: :func:`choose`, then :func:`write_frame`.
-    Returns ``(frame bytes, channel code, subframes)``."""
-    code, subs = choose(pcm, fmt, precision)
-    return write_frame(pcm, fmt, index, code, subs), code, subs
 
 
 def stream_bytes(frames, fmt: Format, total_samples: int) -> bytes:

@@ -11,7 +11,8 @@ inputs from the seed, warms up every shape the cell uses (set-up,
 ``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
 per-layer metrics (host spans over the window, then a profiled window of
 the traffic's ``trace_seconds``).  After the window it holds what the
-window produced against the plain reference (``portbench/reference.py``)
+window produced against the plain reference (``portbench/reference.py``,
+or the one the configuration names under ``portbench/references/``)
 and prints each number compared beside its limit, last on standard error
 and last in the JSON line.
 

@@ -66,8 +66,9 @@ def test_reference_stream_decodes_in_the_program(name):
 
     _, fmt, pcm = setting(name, 3)
     n = fmt.block_size
-    frames = [reference.encode_frame(pcm[:, i * n:(i + 1) * n], fmt, i)[0]
-              for i in range(3)]
+    blocks = [pcm[:, i * n:(i + 1) * n] for i in range(3)]
+    frames = [reference.write_frame(b, fmt, i, *reference.choose(b, fmt))
+              for i, b in enumerate(blocks)]
     for i, frame in enumerate(frames):
         assert np.array_equal(reference.decode_frame(frame, fmt),
                               pcm[:, i * n:(i + 1) * n])

@@ -71,7 +71,7 @@ def test_an_empty_registry_reads_nothing(registry):
 def test_the_cpus_eager_encode_reports_neither(tiny, registry, cell):
     res = tiny(cell, trace=True)
     assert res["correct"]
-    assert "encode_emit_ms" in res["metrics"]
+    assert "encode_cut_ms" in res["metrics"]
     for name in NAMES:
         assert name not in res["metrics"], name
 

@@ -90,7 +90,7 @@ def test_every_named_file_loads_by_name():
         assert c["file"].startswith("portbench/configs/")
         cfg = harness.config_file(BENCH, c["name"], ROOT)
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        harness.reference.Format.from_config(cfg)
+        harness.reference_module(cfg).Format.from_config(cfg)
     for w in BENCH["workloads"]:
         traffic = harness.traffic_file(w["traffic"])
         assert callable(harness.entry_class(traffic["entry"]))
