@@ -1,5 +1,6 @@
 """Fixtures of the benchmark's tests: tiny cells on the CPU's plain path."""
 
+import importlib
 import sys
 from pathlib import Path
 
@@ -9,7 +10,10 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-#: each entry's traffic cut to a size a CPU test run holds
+from portbench import harness  # noqa: E402
+
+#: each entry's traffic cut to a size a CPU test run holds; an entry not
+#: named here carries its own as the module attribute ``TINY``
 TINY = {
     "encode_frame_stream": dict(batch_frames=4, pool=2, warmup_batches=1,
                                 trace_seconds=0.5,
@@ -22,8 +26,11 @@ TINY = {
 
 
 #: cells whose files the benchmark holds but ``BENCHMARK.json`` does not
-#: list yet (their runs spread past any bound the contract allows)
+#: list (their runs spread past any bound the contract allows)
 LATER = {
+    "cd16_default.encode": {"name": "cd16_default.encode",
+                            "config": "cd16_default",
+                            "traffic": "encode.b1024", "chips": 1},
     "cd16_default.decode": {"name": "cd16_default.decode",
                             "config": "cd16_default",
                             "traffic": "decode.s2048", "chips": 1},
@@ -33,18 +40,51 @@ LATER = {
 }
 
 
+def listed() -> list:
+    """The cells of ``BENCHMARK.json``."""
+    return [w["name"] for w in harness.load_benchmark(ROOT)["workloads"]]
+
+
+def traffic_of(cell: str) -> dict:
+    """The cell's traffic file, the cell found in ``BENCHMARK.json`` or in
+    :data:`LATER`."""
+    w = LATER.get(cell) or harness.cell(harness.load_benchmark(ROOT), cell)
+    return harness.traffic_file(w["traffic"])
+
+
+def entry_of(cell: str) -> str:
+    """The entry that drives the cell's traffic: what a test classifies a
+    cell by, whatever the cell's name."""
+    return traffic_of(cell)["entry"]
+
+
+def listed_on(entry: str) -> list:
+    """The cells of ``BENCHMARK.json`` whose traffic ``entry`` drives."""
+    return [c for c in listed() if entry_of(c) == entry]
+
+
+def tiny_sizes(entry: str) -> dict:
+    """The traffic keys that cut a cell of ``entry`` to a CPU test run."""
+    if entry in TINY:
+        return TINY[entry]
+    module = importlib.import_module(f"portbench.entries.{entry}")
+    sizes = getattr(module, "TINY", None)
+    if sizes is None:
+        pytest.fail(f"portbench/entries/{entry}.py defines no TINY: the "
+                    "traffic keys that cut its cells to a CPU test run",
+                    pytrace=False)
+    return sizes
+
+
 @pytest.fixture
 def tiny():
     """``tiny(workload, **kwargs)``: one CPU run of the cell at
-    :data:`TINY` size (``portbench.run.run``'s result)."""
-    from portbench import harness, run
+    :func:`tiny_sizes` (``portbench.run.run``'s result)."""
+    from portbench import run
 
     def go(workload, seconds=1.0, trace=False, control=False,
            device="cpu", **over):
-        spec = LATER.get(workload)
-        w = spec or harness.cell(harness.load_benchmark(ROOT), workload)
-        entry = harness.traffic_file(w["traffic"])["entry"]
         return run.run(workload, 20260001, seconds, trace, device, control,
-                       {**TINY[entry], **over}, log=lambda *a, **k: None,
-                       spec=spec)
+                       {**tiny_sizes(entry_of(workload)), **over},
+                       log=lambda *a, **k: None, spec=LATER.get(workload))
     return go

@@ -2,7 +2,6 @@
 come out not correct, the faults a run has to catch, and the import
 check."""
 
-import json
 import subprocess
 import sys
 from pathlib import Path
@@ -10,13 +9,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench.tests.conftest import LATER
+from portbench import readers
+from portbench.tests.conftest import LATER, entry_of, listed, traffic_of
 
 ROOT = Path(__file__).resolve().parents[2]
-BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-CELLS = [w["name"] for w in BENCH["workloads"]] + list(LATER)
-ENCODE = [c for c in CELLS if c.endswith(".encode")]
-DECODE = [c for c in CELLS if c.endswith(".decode")]
+CELLS = listed() + list(LATER)
+ENCODE = [c for c in CELLS if entry_of(c) == readers.ENCODE]
+DECODE = [c for c in CELLS if entry_of(c) == readers.DECODE]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -46,23 +45,28 @@ def loud_only(cell):
     """The cell's signal cut to its loud passages: a tiny decode run
     samples a frame or two, which quiet passages would leave exact in the
     control's narrower arithmetic."""
-    from portbench import harness
-
-    signal = harness.traffic_file(LATER[cell]["traffic"])["signal"]
+    signal = traffic_of(cell)["signal"]
     return {**signal, "passages": [p for p in signal["passages"]
                                    if p["kind"] == "loud"]}
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(tiny, cell):
-    extra = ({"check": {"frames": 16, "decode_frames": 1}}
-             if cell in ENCODE else {"signal": loud_only(cell)})
+    """The encode and decode entries' controls fail the one number that
+    can catch them; another entry's has to fail at least one, at the
+    sizes its ``TINY`` gives."""
+    if cell in ENCODE:
+        extra, want = ({"check": {"frames": 16, "decode_frames": 1}},
+                       ["analysis_mismatch_pct"])
+    elif cell in DECODE:
+        extra, want = {"signal": loud_only(cell)}, ["pcm_mismatch"]
+    else:
+        extra, want = {}, None
     res = tiny(cell, control=True, **extra)
     assert not res["correct"]
     failed = [k for k, v in res["checks"].items()
               if v["value"] > v["limit"]]
-    assert failed == (["analysis_mismatch_pct"] if cell in ENCODE
-                      else ["pcm_mismatch"])
+    assert failed == want if want else failed, res["checks"]
 
 
 @pytest.fixture
@@ -143,9 +147,10 @@ def test_no_jax_or_flacx_after_a_dry_run():
         "import sys; sys.path.insert(0, %r)\n"
         "from portbench import run\n"
         "from portbench.tests.conftest import TINY\n"
-        "r = run.run('cd16_default.encode', 5, 0.5, False, 'cpu', False,"
+        "r = run.run(%r, 5, 0.5, False, 'cpu', False,"
         " TINY['encode_frame_stream'], log=lambda *a, **k: None)\n"
-        "print(r['correct'], run.loaded_forbidden())\n" % str(ROOT))
+        "print(r['correct'], run.loaded_forbidden())\n"
+        % (str(ROOT), ENCODE[0]))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-2000:]

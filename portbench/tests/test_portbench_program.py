@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from portbench import harness, readers
+from portbench.tests.conftest import listed_on
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -18,13 +19,28 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 PROGRAM = [m["name"] for m in BENCH["per_layer"]
            if "from portbench import program" in (
                ROOT / "portbench" / "metrics" / f"{m['name']}.py").read_text()]
-ENCODE = [w["name"] for w in BENCH["workloads"]
-          if w["name"].endswith(".encode")]
+#: the four of them that read the encode pipeline's spans and copies
+FOUR = ["encode_upload_ms", "encode_fetch_ms", "encode_cut_ms",
+        "encode_copy_mb_per_batch"]
+ENCODE = listed_on(readers.ENCODE)
+
+
+def reported(cell):
+    """The program metrics that ``cell`` reports."""
+    return [m["name"] for m in BENCH["per_layer"]
+            if m["name"] in PROGRAM and harness.reports(m, cell)]
 
 
 def test_the_four_program_metrics_are_listed():
-    assert PROGRAM == ["encode_upload_ms", "encode_fetch_ms",
-                       "encode_cut_ms", "encode_copy_mb_per_batch"]
+    """The four are among the metrics that read the program, each with
+    its source and for every encode cell; a metric added beside them
+    changes nothing here."""
+    got = {m["name"]: m for m in BENCH["per_layer"] if m["name"] in PROGRAM}
+    assert set(FOUR) <= set(got)
+    assert [got[n]["source"] for n in FOUR] == ["program_span"] * 3 + [
+        "program_counter"]
+    for cell in ENCODE:
+        assert set(FOUR) <= set(reported(cell)), cell
 
 
 @pytest.mark.parametrize("cell", ENCODE)
@@ -34,7 +50,7 @@ def test_traced_dry_run_reports_every_program_metric(tiny, cell):
     trace.reset()
     res = tiny(cell, trace=True)
     assert res["correct"]
-    for name in PROGRAM:
+    for name in reported(cell):
         value = res["metrics"][name]["value"]
         assert math.isfinite(value) and value >= 0, name
     assert res["metrics"]["encode_copy_mb_per_batch"]["value"] > 0
@@ -61,9 +77,11 @@ def test_card_traced_dry_run_reports_every_program_metric(tiny, cell):
         trace.reset()
     assert res["correct"], res["checks"]
     assert res["metrics"]["encode_graph_replay_share"]["value"] == 1.0
-    for name in PROGRAM:
+    for name in reported(cell):
         value = res["metrics"][name]["value"]
-        assert math.isfinite(value) and value > 0, name
+        assert math.isfinite(value) and value >= 0, name
+    for name in FOUR:
+        assert res["metrics"][name]["value"] > 0, name
 
 
 def test_a_registry_of_the_graphed_path_reads_numbers(monkeypatch):
@@ -85,7 +103,7 @@ def test_a_registry_of_the_graphed_path_reads_numbers(monkeypatch):
     record = {"entry": readers.ENCODE, "trace": {"batches": 2}}
     try:
         assert "encode.emit" not in trace.snapshot()["spans"]
-        got = {name: harness.reader(name)(record) for name in PROGRAM}
+        got = {name: harness.reader(name)(record) for name in FOUR}
     finally:
         trace.reset()
     assert got == {"encode_upload_ms": pytest.approx(1.0),

@@ -7,13 +7,14 @@ before; a bad or unknown name fails at set-up."""
 import copy
 import dataclasses
 import json
+import re
 import sys
 import types
 from pathlib import Path
 
 import pytest
 
-from portbench import harness, reference
+from portbench import harness, reference, references
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -137,8 +138,9 @@ FORMATS = {
 }
 
 
-@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+@pytest.mark.parametrize("name", FORMATS)
 def test_without_the_key_the_judge_is_the_default_reference(name):
+    assert name in [c["name"] for c in BENCH["configs"]]
     cfg = harness.config_file(BENCH, name, ROOT)
     assert "reference" not in cfg
     assert harness.reference_module(cfg) is reference
@@ -147,6 +149,37 @@ def test_without_the_key_the_judge_is_the_default_reference(name):
         "chips": 1})
     assert ctx.ref is reference
     assert ctx.fmt == FORMATS[name]
+
+
+#: what a reference module defines beside ``Format``, as the bullets of
+#: ``portbench.references``' docstring list it
+INTERFACE = re.findall(r"^- ``(\w+)\(", references.__doc__, re.M)
+
+
+def test_the_interface_lists_choose_and_the_shared_functions():
+    assert INTERFACE[0] == "choose" and set(SHARED) <= set(INTERFACE)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_is_judged_by_its_reference(name):
+    """Without the key the judge is ``portbench.reference`` and the format
+    its own; with it, a module under ``portbench.references`` whose
+    ``Format`` extends the default one, accepts the configuration and
+    whose module holds the whole interface."""
+    cfg = harness.config_file(BENCH, name, ROOT)
+    traffic = next(w["traffic"] for w in BENCH["workloads"]
+                   if w["config"] == name)
+    ctx = harness.context(ROOT, None, 1, "cpu", {
+        "name": name, "config": name, "traffic": traffic, "chips": 1})
+    if "reference" not in cfg:
+        assert ctx.ref is reference
+        assert ctx.fmt == reference.Format.from_config(cfg)
+        return
+    assert ctx.ref.__name__ == f"portbench.references.{cfg['reference']}"
+    assert issubclass(ctx.ref.Format, reference.Format)
+    assert isinstance(ctx.fmt, ctx.ref.Format)
+    for fn in INTERFACE:
+        assert callable(getattr(ctx.ref, fn, None)), fn
 
 
 @pytest.mark.parametrize("name,error", [

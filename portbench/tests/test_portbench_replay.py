@@ -11,11 +11,11 @@ from pathlib import Path
 import pytest
 
 from portbench import harness, readers
+from portbench.tests.conftest import listed_on
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-ENCODE = [w["name"] for w in BENCH["workloads"]
-          if w["name"].endswith(".encode")]
+ENCODE = listed_on(readers.ENCODE)
 NAMES = ("encode_replay_ms", "encode_graph_replay_share")
 
 
